@@ -21,12 +21,17 @@ Phases:
    exact zeros, and K5 must equal K4 bitwise on the same rows.  Flash
    attention (K1 forward, K2 dq, K3 dk/dv) at the
    training shape (b 1, seq 4096, 32 heads, head_dim 128, causal), GQA
-   32/8, a 100-token window, two packed documents, bidirectional, and
-   head_dim 64 / 256 at seq 1024, in fp32 (out and lse atol 1e-5, grads
+   32/8, a 100-token window, two packed documents, bidirectional,
+   head_dim 64 / 256 at seq 1024, the ragged ends of K1's 128-row tiles
+   (seq 1000 and 77, GQA 32/8, documents) and q / k / v sliced from one
+   fused qkv buffer (seq 2048), in fp32 (out and lse atol 1e-5, grads
    atol = rtol = 1e-4: summation order) and with bf16 inputs, once with
    bf16 and once with fp32 outputs (lse atol 1e-5; every other output
    within 1e-2 norm-relative error and atol = rtol = 2e-2: the kernels
-   round P and dS to bf16 before their products).  Each of K1-K3 run with
+   round P and dS to bf16 before their products).  bf16 K1 at head_dim 64
+   / 128 runs the Hopper kernel (``csrc/flash_fwd_hopper.cu``; the
+   ``kernels`` line's K1 row names the ``path``), fp32 and head_dim 256 the
+   shared-memory one.  Each of K1-K3 run with
    its softmax scale 10% off must fail the bf16 check.  Fused RMSNorm (K7
    forward, K8 backward) at h 2048, 4096 and 4100 (the scalar path), row
    counts that K8's chunks do and do not divide, with fp32 x and w, bf16
@@ -85,7 +90,8 @@ Phases:
    from ``--seed`` into a temporary directory, then one validation batch
    outside the timed window.  Every loss must be finite, the last at least
    1 nat below the first, and K1, K2 and K3 (counters set to 0 just
-   before) must each have launched.  Prints the steady step time,
+   before) must each have launched, K1 768 times on the Hopper kernel
+   (8 layers x 4 microbatches x 12 steps, twice: selective recompute).  Prints the steady step time,
    tokens/s and MFU against 989 TFLOP/s.
 8. ``train-check``: one train step of the same model at 2 layers and seq
    2048, on the same weights and batch, through the flash kernels and
@@ -357,19 +363,27 @@ def phase_kernels(dev, report, args):
 class FlashCase:
     """Flash-attention inputs ``[b, s, heads, d]``: q and do contiguous, k
     and v strided views into one fused tensor (as ``split_qkv`` leaves v),
-    two packed documents when ``segments``."""
+    or with ``fused`` q, k and v all sliced from one ``[b, s, n + 2 nkv,
+    d]`` buffer (as the model's qkv projection leaves them); two packed
+    documents when ``segments``."""
 
     def __init__(self, torch, gen, dev, dtype, *, s, n, nkv, d, causal=True,
-                 window=None, segments=False, b=1):
+                 window=None, segments=False, fused=False, b=1):
         from megatron_llm_tpu_torch.ops.flash_attention import _allowed
 
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).to(dtype)
 
-        self.q, self.do = randn(b, s, n, d), randn(b, s, n, d)
-        kv = randn(b, s, nkv, 2, d)
-        self.k, self.v = kv[:, :, :, 0], kv[:, :, :, 1]
+        if fused:
+            qkv = randn(b, s, n + 2 * nkv, d)
+            self.q, self.k, self.v = (qkv[:, :, :n], qkv[:, :, n:n + nkv],
+                                      qkv[:, :, n + nkv:])
+            self.do = randn(b, s, n, d)
+        else:
+            self.q, self.do = randn(b, s, n, d), randn(b, s, n, d)
+            kv = randn(b, s, nkv, 2, d)
+            self.k, self.v = kv[:, :, :, 0], kv[:, :, :, 1]
         self.seg = None
         if segments:
             self.seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
@@ -441,13 +455,20 @@ FLASH_CASES = {
     "bidirectional": dict(FLASH_SHAPE, s=2048, causal=False),
     "d64": dict(s=1024, n=32, nkv=32, d=64),
     "d256": dict(s=1024, n=16, nkv=16, d=256),
+    # the edges of K1's 128-row tiles: ragged q and kv ends, a sequence
+    # shorter than one tile, with GQA and documents
+    "ragged-1000": dict(s=1000, n=32, nkv=8, d=128, segments=True),
+    "ragged-77": dict(s=77, n=32, nkv=8, d=128, segments=True),
+    # q, k and v strided views of one fused qkv buffer
+    "strided": dict(FLASH_SHAPE, s=2048, nkv=8, fused=True),
 }
 # Each mode: the inputs' type, the outputs' type, (atol, rtol) of out and
 # of the gradients, the atol of lse, and the bound on each output's
 # norm-relative error ||kernel - plain|| / ||plain|| (None: not held).
 # fp32 runs the shared-memory kernels: summation order only (out and lse
-# 1e-5; gradients, longer sums, 1e-4).  bf16 inputs run the register
-# kernels that train, once with bf16 outputs (as training calls them) and
+# 1e-5; gradients, longer sums, 1e-4).  bf16 inputs run the kernels that
+# train (K1's Hopper kernel, K2 / K3's register kernels; d 256 the
+# shared-memory ones), once with bf16 outputs (as training calls them) and
 # once with fp32 outputs (as a ring caller does), against the fp32 plain
 # versions on the same inputs.  The kernels round P and dS to bf16 before
 # their products: each output is held by its norm-relative error (1e-2;
@@ -601,14 +622,18 @@ def flash_kernels(dev, report):
             ms=min(ms_k_1, ms_k_2), plain_ms=min(ms_plain_1, ms_plain_2),
             device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
             flops=flops, max_abs_err=worst[kname],
+            tflop_s=flops / min(ms_k_1, ms_k_2) / 1e9,
             library_ms=sdpa_fwd if kname == "flash_fwd" else sdpa_bwd)
+        if kname == "flash_fwd":   # which K1 kernel the training shape ran
+            rows[kname]["path"] = kernels.flash_fwd_kernel.last_path
         log(f"  {kname}: kernel {ms_k_1:.4f}/{ms_k_2:.4f} ms (device "
             f"{dev_ms:.4f} ms), plain "
             f"{ms_plain_1:.4f}/{ms_plain_2:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
-            f"{flops / rows[kname]['ms'] / 1e9:.1f} TFLOP/s")
+            f"{rows[kname]['tflop_s']:.1f} TFLOP/s")
     print(f"kernels: flash at b 1, seq 4096, 32 heads, d 128, causal, bf16: "
-          f"K1 {rows['flash_fwd']['ms']:.4f} ms, K2 "
+          f"K1 ({rows['flash_fwd']['path']} kernel) "
+          f"{rows['flash_fwd']['ms']:.4f} ms, K2 "
           f"{rows['flash_bwd_dq']['ms']:.4f} ms, K3 "
           f"{rows['flash_bwd_dkv']['ms']:.4f} ms; "
           f"scaled_dot_product_attention forward {sdpa_fwd:.4f} ms, "
@@ -1446,6 +1471,15 @@ def phase_train(dev, report, args):
     for name, n in flash.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    # K1 runs twice a layer and microbatch (the forward and selective
+    # recompute's second forward), on the Hopper kernel
+    k1_want = 2 * TRAIN_LAYERS * 4 * TRAIN_ITERS
+    if (flash["flash_fwd_kernel"] != k1_want
+            or kernels.flash_fwd_kernel.last_path != "hopper"):
+        raise AssertionError(
+            f"K1 launched {flash['flash_fwd_kernel']} times (want {k1_want}) "
+            f"on the {kernels.flash_fwd_kernel.last_path} kernel (want "
+            f"hopper)")
     step_s = 1.0 / result["steady_steps_per_sec"]
     tps = result["tokens_per_sec"]
     mfu = flops_per_token(cfg) * tps / PEAK_FLOPS["bfloat16"]
@@ -1656,7 +1690,7 @@ def phase_train_check(dev, report, args):
 
 KERNEL_META = {
     "flash_fwd": dict(
-        source="megatron_llm_tpu_torch/ops/kernels/csrc/flash_fwd.cu",
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/flash_fwd_hopper.cu",
         replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:77",
         wrapper="flash_fwd_kernel", launches_from="train_launches",
         library_note="torch.nn.functional.scaled_dot_product_attention "
@@ -1788,6 +1822,7 @@ def main(argv=None) -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms"),
                 "library_note": meta["library_note"],
+                **{k: row[k] for k in ("tflop_s", "path") if k in row},
             })
         print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

@@ -198,9 +198,10 @@ def _flash_strides(name, t_name, t, b, s, heads, d):
 
 def _check_flash(name, q, k, v, extra, segment_ids):
     """Validate q ``[b, sq, n, d]``, k / v ``[b, skv, nkv, d]`` and the
-    ``extra`` tensors; returns (dims, strides, segment pointer)."""
+    ``extra`` tensors; returns (dims, strides, segment pointer).  The
+    device is checked last, so the type and layout checks also speak for
+    tensors on the CPU."""
     dev = q.device
-    _check(dev.type == "cuda", f"{name}: q must be a CUDA tensor, got {dev}")
     _check(q.dtype in _FLASH_DTYPES,
            f"{name}: dtype {q.dtype} not in fp32/bf16")
     _check(q.dim() == 4 and k.dim() == 4,
@@ -217,6 +218,7 @@ def _check_flash(name, q, k, v, extra, segment_ids):
         _check(t.dtype == q.dtype,
                f"{name}: {t_name} dtype {t.dtype} != q dtype {q.dtype}")
         strides += _flash_strides(name, t_name, t, b, s, h, d)
+    _check(dev.type == "cuda", f"{name}: q must be a CUDA tensor, got {dev}")
     seg = None
     if segment_ids is not None:
         _check(sq == skv, f"{name}: segment ids need sq == skv")
@@ -251,12 +253,46 @@ def _flash_tail(dims, scale, causal, sliding_window, q, out_dtype):
             _stream(q.device))
 
 
+FLASH_FWD_PATHS = ("smem", "hopper")   # flash_fwd_launch's `path` codes
+
+
+def flash_fwd_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which K1 kernel runs: ``"hopper"`` (``csrc/flash_fwd_hopper.cu``:
+    TMA, wgmma, warp-specialised warpgroups) for bf16 at head_dim 64 and
+    128, ``"smem"`` (the shared-memory kernel of ``csrc/flash_fwd.cu``)
+    for every other type and head_dim."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "hopper"
+    return "smem"
+
+
+def flash_tma_geometry(t: torch.Tensor) -> list:
+    """The 4-D TMA map of a ``[b, s, heads, d]`` tensor with a contiguous
+    last dimension: its dims innermost first ``(d, heads, s, b)``, then the
+    byte strides of heads, s and b.  A dim of size 1 never moves the
+    address, so it gets the stride a packed layout would give it (TMA
+    wants a nonzero multiple of 16 there too)."""
+    b, s, heads, d = t.shape
+    esz = t.element_size()
+    dims = [d, heads, s, b]
+    strides = []
+    prev = d * esz   # the packed stride of heads
+    for size, st in zip((heads, s, b), (t.stride(2), t.stride(1),
+                                        t.stride(0))):
+        stride = st * esz if size > 1 else prev
+        strides.append(stride)
+        prev = stride * size
+    return dims + strides
+
+
 def flash_fwd_kernel(q, k, v, segment_ids=None, *, scale: float,
                      causal: bool = True, sliding_window: Optional[int] = None,
                      out_dtype: Optional[torch.dtype] = None):
-    """CUDA flash-attention forward (``csrc/flash_fwd.cu``, K1); same
-    contract as ``ops.flash_attention.flash_fwd_plain``: returns
-    ``(out [b, sq, n, d], lse [b, n, sq, 1] fp32)``."""
+    """CUDA flash-attention forward (K1; ``csrc/flash_fwd_hopper.cu`` or
+    ``csrc/flash_fwd.cu`` as :func:`flash_fwd_path` picks, recorded in
+    ``flash_fwd_kernel.last_path``); same contract as
+    ``ops.flash_attention.flash_fwd_plain``: returns ``(out [b, sq, n, d],
+    lse [b, n, sq, 1] fp32)``."""
     name = "flash_fwd_kernel"
     dims, strides, seg = _check_flash(name, q, k, v, (), segment_ids)
     b, sq, skv, n, nkv, d = dims
@@ -265,15 +301,25 @@ def flash_fwd_kernel(q, k, v, segment_ids=None, *, scale: float,
     lse = torch.empty((b, n, sq, 1), device=q.device, dtype=torch.float32)
     if out.numel() == 0:
         return out, lse
+    path = flash_fwd_path(q.dtype, d)
+    geo = counter = None
+    if path == "hopper":
+        geo = [x for t in (q, k, v) for x in flash_tma_geometry(t)]
+        geo = (ctypes.c_longlong * len(geo))(*geo)
+        # the persistent kernel's work-tile counter (zeroed by the launch)
+        counter = torch.empty(1, device=q.device, dtype=torch.int32)
     lib = build.library()
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    *tail, stream = _flash_tail(dims, scale, causal, sliding_window, q,
+                                out_dtype)
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             _ptr(q), _ptr(k), _ptr(v), seg, seg, _ptr(out), _ptr(lse),
-            c_strides, *_flash_tail(dims, scale, causal, sliding_window, q,
-                                    out_dtype))
+            c_strides, geo, counter if counter is None else _ptr(counter),
+            *tail, FLASH_FWD_PATHS.index(path), stream)
     _raise_on(err, name, lib)
     flash_fwd_kernel.launches += 1
+    flash_fwd_kernel.last_path = path
     return out, lse
 
 
@@ -430,6 +476,7 @@ paged_ragged_kernel.launches = 0
 paged_decode_kernel.launches = 0
 paged_prefill_kernel.launches = 0
 flash_fwd_kernel.launches = 0
+flash_fwd_kernel.last_path = None
 flash_bwd_dq_kernel.launches = 0
 flash_bwd_dkv_kernel.launches = 0
 rms_norm_fwd_kernel.launches = 0

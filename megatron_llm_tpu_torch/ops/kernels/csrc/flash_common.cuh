@@ -1,10 +1,12 @@
-// Shared device code of the flash-attention kernels (flash_fwd.cu: K1,
-// flash_bwd.cu: K2 and K3).
+// Shared device code of the flash-attention kernels (flash_fwd.cu and
+// flash_fwd_hopper.cu: K1, flash_bwd.cu: K2 and K3).
 //
-// Two paths.  bf16 at head_dim 64 / 128 (the training shapes) takes the
-// register-resident kernels described further down.  fp32, and bf16 at
-// head_dim 256, take the shared-memory path: every kernel works on tiles
-// staged in shared memory: q / k / v / do tiles
+// Three paths.  bf16 at head_dim 64 / 128 (the training shapes) takes, in
+// K1, the Hopper kernel of flash_fwd_hopper.cu (TMA, wgmma; it uses
+// Params, the tile tests, the quad reductions, to_a_frags and store_frags
+// from here) and, in K2 / K3, the register-resident kernels described further
+// down.  fp32, and bf16 at head_dim 256, take the shared-memory path:
+// every kernel works on tiles staged in shared memory: q / k / v / do tiles
 // of B rows x D dims in the input type T, a B x B fp32 score tile, a B x B
 // probability (or dS) tile in T that feeds the next product, and B x D fp32
 // accumulators.  The tiled products are `gemm` below: `mma.sync`
@@ -296,12 +298,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
 }
 
 // ---------------------------------------------------------------------------
-// The register-resident path of bf16 at head_dim 64 / 128 (FlashAttention-2
-// style).  A block of 4 warps; each warp owns 16 rows of the tile it
-// iterates from (query rows in K1 / K2, kv rows in K3) and keeps its scores,
-// probabilities and fp32 accumulators in mma.sync fragments: the score
-// fragment of one product is repacked in registers as the A operand of the
-// next (to_a_frags), so nothing of it goes through shared memory.  The
+// The register-resident path of K2 / K3 at bf16, head_dim 64 / 128
+// (FlashAttention-2 style).  A block of 4 warps; each warp owns 16 rows of
+// the tile it iterates from (query rows in K2, kv rows in K3) and keeps its
+// scores, probabilities and fp32 accumulators in mma.sync fragments: the
+// score fragment of one product is repacked in registers as the A operand
+// of the next (to_a_frags), so nothing of it goes through shared memory
+// (K1's Hopper kernel repacks its wgmma accumulators the same way).  The
 // tiles it walks over arrive by cp.async into two shared-memory stages, the
 // next tile's copy in flight while the current one is consumed.
 // ---------------------------------------------------------------------------

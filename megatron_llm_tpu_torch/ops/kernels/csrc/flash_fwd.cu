@@ -14,12 +14,12 @@
 // Design: one block per (q tile, head, batch); the TPU's sequential kv grid
 // axis is the block's loop.  Tiles the causal mask or the window rule out
 // entirely are skipped; the heaviest causal q tiles start first.  bf16 at
-// head_dim 64 / 128 takes the register path (fwd_kernel_reg: S, P and the
-// accumulator in mma.sync fragments, K / V double-buffered by cp.async).
-// fp32 and head_dim 256 take the shared-memory path (fwd_kernel): the q
-// tile stays in shared memory; per kv tile the block stages K and V, forms
-// S = Q K^T, runs the online softmax one warp per row (rescaling the fp32
-// accumulator in shared memory), and accumulates P V.
+// head_dim 64 / 128 takes the Hopper kernel (flash_fwd_hopper.cu: TMA,
+// wgmma, warp-specialised warpgroups).  fp32 and head_dim 256 take the
+// shared-memory kernel here (fwd_kernel): the q tile stays in shared
+// memory; per kv tile the block stages K and V, forms S = Q K^T, runs the
+// online softmax one warp per row (rescaling the fp32 accumulator in
+// shared memory), and accumulates P V.
 #include "flash_common.cuh"
 
 namespace flash {
@@ -118,156 +118,34 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
   }
 }
 
-// The register path (bf16, head_dim 64 / 128): 4 warps own 16 query rows
-// each of a 64-row q tile; K / V tiles of 64 rows arrive by cp.async into
-// two stages; S, P and the fp32 output accumulator stay in mma fragments.
-template <int D>
-__global__ void __launch_bounds__(RTHREADS) fwd_kernel_reg(const Params p) {
-  constexpr int BQ = 64, BKV = 64, LD = D + 8;
-  constexpr int NJ = BKV / 8, ND = D / 8, KT = BKV / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* kv_s = q_s + BQ * LD;  // [stage][k, v][BKV][LD]
-  int* segq_s = reinterpret_cast<int*>(kv_s + 4 * BKV * LD);
-  int* segk_s = segq_s + BQ;   // [stage][BKV]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kvh = h / (p.n / p.nkv);
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gc = (lane & 3) * 2;
-  const int lr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
-
-  const bf16* q = static_cast<const bf16*>(p.q) + bi * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
-  const int* seg_q = p.seg_q ? p.seg_q + (long long)bi * p.sq : nullptr;
-  const int* seg_kv = p.seg_kv ? p.seg_kv + (long long)bi * p.skv : nullptr;
-
-  int lo = 0, hi = (p.skv + BKV - 1) / BKV;  // the kv tiles to visit
-  while (lo < hi && !run_tile(q0, lo * BKV, BQ, BKV, p)) ++lo;
-  while (hi > lo && !run_tile(q0, (hi - 1) * BKV, BQ, BKV, p)) --hi;
-
-  auto fetch = [&](int kt, int stage) {
-    bf16* dst = kv_s + stage * 2 * BKV * LD;
-    load_tile_async<BKV, D, LD>(dst, k, p.k_ss, kt * BKV, p.skv);
-    load_tile_async<BKV, D, LD>(dst + BKV * LD, v, p.v_ss, kt * BKV, p.skv);
-    for (int i = threadIdx.x; i < BKV; i += RTHREADS)
-      segk_s[stage * BKV + i] =
-          (seg_kv && kt * BKV + i < p.skv) ? seg_kv[kt * BKV + i] : 0;
-  };
-  load_tile_async<BQ, D, LD>(q_s, q, p.q_ss, q0, p.sq);
-  for (int i = threadIdx.x; i < BQ; i += RTHREADS)
-    segq_s[i] = (seg_q && q0 + i < p.sq) ? seg_q[q0 + i] : 0;
-  if (lo < hi) fetch(lo, 0);
-  cp_async_commit();
-
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const float sl2 = p.scale * LOG2E;  // scores in log2 units: exp2 below
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int stage = (kt - lo) & 1;
-    if (kt + 1 < hi) fetch(kt + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_t = kv_s + stage * 2 * BKV * LD;
-    const int kv0 = kt * BKV;
-    float s[NJ][4];
-    warp_gemm_nt<NJ, D>(s, q_s + warp * 16 * LD, LD, k_t, LD);
-    const bool full = tile_full(q0, kv0, BQ, BKV, p);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * sl2;
-        if (!full) {
-          const int c = 8 * j + gc + (e & 1);
-          if (!allowed(q0 + lr[e >> 1], kv0 + c, segq_s[lr[e >> 1]],
-                       segk_s[stage * BKV + c], p))
-            x = NEG_INF;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // rows fully masked so far keep p = 0 (the Pallas guard)
-        const float pr = s[j][e] <= NEG_INF * 0.5f ? 0.f : exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = pr;
-        sum[e >> 1] += pr;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
-    uint32_t pa[KT][4];
-    to_a_frags<NJ>(pa, s);
-    warp_gemm_pv<ND, KT>(o, pa, k_t + BKV * LD, LD);
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-  cp_async_wait<0>();
-
-  const int rows[2] = {q0 + lr[0], q0 + lr[1]};
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];  // fully masked rows -> 0
-    inv[i] = 1.f / l_safe;
-    if ((lane & 3) == 0 && rows[i] < p.sq)
-      p.lse_out[((long long)bi * p.n + h) * p.sq + rows[i]] =
-          l[i] == 0.f ? m[i] : m[i] * LN2 + logf(l[i]);
-  }
-  store_frags<ND>(p.out, ((long long)bi * p.sq * p.n + h) * D, (long long)p.n * D, o,
-                  rows, p.sq, inv, p.out_f32);
-}
-
 template <typename T, int D>
 cudaError_t launch_fwd(const Params& p, cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value && D <= 128) {
-    constexpr int LD = D + 8;
-    constexpr int smem = (64 + 4 * 64) * LD * 2 + 3 * 64 * 4;
-    const dim3 grid((p.sq + 63) / 64, p.n, p.b);
-    return launch(fwd_kernel_reg<D>, grid, RTHREADS, smem, st, p);
-  } else {
-    using S = Shape<T, D>;
-    constexpr int smem = 3 * S::TILE_T + S::TILE_S + S::TILE_P + S::TILE_A +
-                         4 * S::VEC_F;
-    static_assert(smem <= 232448, "shared memory");
-    const dim3 grid((p.sq + S::B - 1) / S::B, p.n, p.b);
-    return launch(fwd_kernel<T, D>, grid, THREADS, smem, st, p);
-  }
+  using S = Shape<T, D>;
+  constexpr int smem = 3 * S::TILE_T + S::TILE_S + S::TILE_P + S::TILE_A + 4 * S::VEC_F;
+  static_assert(smem <= 232448, "shared memory");
+  const dim3 grid((p.sq + S::B - 1) / S::B, p.n, p.b);
+  return launch(fwd_kernel<T, D>, grid, THREADS, smem, st, p);
 }
+
+// flash_fwd_hopper.cu: bf16 at head_dim 64 / 128
+cudaError_t launch_fwd_hopper(const Params& p, const long long* geo, int* tile_counter, int d,
+                              cudaStream_t st);
 
 }  // namespace flash
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: q, k, v as (batch, seq, head)
-// element strides, 9 values.  Returns a cudaError_t.
+// element strides, 9 values.  path: 0 = the shared-memory kernel (strides),
+// 1 = the Hopper kernel (bf16, head_dim 64 / 128; `geo` holds q's, k's and
+// v's TMA geometry, 21 values, and `tile_counter` points at one int of
+// device memory), as ops/kernels/__init__.py's flash_fwd_path chose it.
+// Returns a cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* seg_q, const void* seg_kv, void* out,
-                                void* lse, const long long* strides, int b,
-                                int sq, int skv, int n, int nkv, int d,
-                                float scale, int causal, int window, int dtype,
-                                int out_f32, void* stream) {
+                                void* lse, const long long* strides,
+                                const long long* geo, void* tile_counter, int b, int sq,
+                                int skv, int n, int nkv, int d, float scale, int causal,
+                                int window, int dtype, int out_f32, int path,
+                                void* stream) {
   flash::Params p{};
   p.q = q;
   p.k = k;
@@ -284,7 +162,12 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   p.out_f32 = out_f32;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 1)
+    return dtype == 1 ? (int)flash::launch_fwd_hopper(p, geo, static_cast<int*>(tile_counter),
+                                                      d, st)
+                      : (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  FLASH_DISPATCH(flash::launch_fwd, dtype, d, p, static_cast<cudaStream_t>(stream), err)
+  FLASH_DISPATCH(flash::launch_fwd, dtype, d, p, st, err)
   return (int)err;
 }

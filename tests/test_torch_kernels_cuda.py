@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: paged attention (K4 ragged, K5 decode, K6 prefill; K5 also bitwise
-against K4 on the same rows), flash attention (K1-K3) and fused RMSNorm
-(K7 forward, K8 backward).
+against K4 on the same rows), flash attention (K1-K3, and K1's Hopper
+kernel at its tile edges) and fused RMSNorm (K7 forward, K8 backward).
 
 The kernels build and run only on an NVIDIA GPU with ``nvcc`` (there is
 no interpret mode), so every test here is marked ``cuda`` and skips
@@ -320,6 +320,102 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="out_dtype"):
         pt_kernels.flash_bwd_dkv_kernel(q, k, v, do, lse, lse,
                                         out_dtype=torch.bfloat16, **kw)
+
+
+# K1's Hopper kernel (csrc/flash_fwd_hopper.cu: bf16 at head_dim 64 / 128)
+# at the edges of its 128-row q and kv tiles, GQA groups 1 / 4 / 8 and every
+# mask; bf16 and fp32 outputs, contiguous inputs and q / k / v sliced from one
+# fused [b, s, n + 2 nkv, d] buffer (as the model's qkv leaves them).  Bars as
+# chip_smoke.py holds the bf16 kernels: out within 1e-2 norm-relative error and
+# atol = rtol = 2e-2 elementwise (P rounded to bf16 before P V, bf16 output),
+# lse within 1e-5 (fp32 scores).
+HOPPER_SEQS = [1, 63, 64, 65, 127, 128, 129, 300, 1000]
+HOPPER_MASKS = {
+    "causal": dict(causal=True, window=None, segments=False),
+    "noncausal": dict(causal=False, window=None, segments=False),
+    "window100": dict(causal=True, window=100, segments=False),
+    "segments": dict(causal=True, window=None, segments=True),
+}
+
+
+def _hopper_inputs(s, g, d, fused, seed):
+    """b 2, 2 kv heads with g query heads each; two or three documents per
+    row for the segment mask."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    b, nkv = 2, 2
+    n = g * nkv
+    f = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                               device=dev).to(torch.bfloat16)
+    if fused:
+        qkv = f(rng.normal(size=(b, s, n + 2 * nkv, d)))
+        q, k, v = qkv[:, :, :n], qkv[:, :, n:n + nkv], qkv[:, :, n + nkv:]
+    else:
+        q, k, v = (f(rng.normal(size=(b, s, h, d))) for h in (n, nkv, nkv))
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    seg[0, s // 3:] = 1
+    seg[0, (2 * s) // 3:] = 2
+    seg[1, s // 2:] = 1
+    return q, k, v, seg
+
+
+@pytest.mark.parametrize("mask", list(HOPPER_MASKS))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("s", HOPPER_SEQS)
+def test_flash_fwd_hopper_matches_plain(s, g, d, mask):
+    spec = HOPPER_MASKS[mask]
+    kw = dict(scale=1.0 / d ** 0.5, causal=spec["causal"],
+              sliding_window=spec["window"])
+    for fused in (False, True):
+        q, k, v, seg = _hopper_inputs(s, g, d, fused, seed=s + 10 * g + d)
+        seg = seg if spec["segments"] else None
+        if fused:
+            assert not q.is_contiguous() and not k.is_contiguous()
+        for out_dtype in (None, torch.float32):
+            pt_kernels.reset_launch_counts()
+            out, lse = pt_kernels.flash_fwd_kernel(q, k, v, seg,
+                                                   out_dtype=out_dtype, **kw)
+            torch.cuda.synchronize()
+            assert pt_kernels.launch_counts()["flash_fwd_kernel"] == 1
+            assert pt_kernels.flash_fwd_kernel.last_path == "hopper"
+            r_out, r_lse = pt_flash.flash_fwd_plain(q, k, v, seg, seg,
+                                                    out_dtype=out_dtype, **kw)
+            assert out.dtype == (out_dtype or torch.bfloat16)
+            assert out.shape == r_out.shape and lse.shape == r_lse.shape
+            err = (out.float() - r_out.float())
+            where = f"fused={fused} out={out.dtype}"
+            assert torch.isfinite(out).all(), where
+            assert float(err.norm() / r_out.float().norm()) <= 1e-2, where
+            torch.testing.assert_close(out.float(), r_out.float(), atol=2e-2,
+                                       rtol=2e-2, msg=where)
+            torch.testing.assert_close(lse, r_lse, atol=1e-5, rtol=0.0,
+                                       msg=where)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128)])
+def test_flash_fwd_launches_the_path_the_rule_picks(dtype, d):
+    """bf16 at head_dim 64 / 128 runs the Hopper kernel, everything else the
+    shared-memory kernel; the counter moves once either way."""
+    q, k, v, _ = _hopper_inputs(200, 4, d, False, seed=7)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    pt_kernels.reset_launch_counts()
+    pt_kernels.flash_fwd_kernel.last_path = None
+    out, lse = pt_kernels.flash_fwd_kernel(q, k, v, scale=1.0 / d ** 0.5)
+    torch.cuda.synchronize()
+    assert pt_kernels.launch_counts()["flash_fwd_kernel"] == 1
+    want = "hopper" if dtype == torch.bfloat16 and d in (64, 128) else "smem"
+    assert pt_kernels.flash_fwd_kernel.last_path == want
+    assert pt_kernels.flash_fwd_path(dtype, d) == want
+    r_out, r_lse = pt_flash.flash_fwd_plain(q, k, v, scale=1.0 / d ** 0.5)
+    fwd_tol, _ = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), r_out.float(), atol=fwd_tol,
+                               rtol=fwd_tol)
+    torch.testing.assert_close(lse, r_lse, atol=1e-5, rtol=0.0)
 
 
 # ---------------------------------------------------------------------------
