@@ -28,12 +28,13 @@ Phases:
    atol = rtol = 1e-4: summation order) and with bf16 inputs, once with
    bf16 and once with fp32 outputs (lse atol 1e-5; every other output
    within 1e-2 norm-relative error and atol = rtol = 2e-2: the kernels
-   round P and dS to bf16 before their products).  bf16 K1 at head_dim 64
-   / 128 runs the Hopper kernel (``csrc/flash_fwd_hopper.cu``; the
-   ``kernels`` line's K1 row names the ``path``), fp32 and head_dim 256 the
-   shared-memory one.  Each of K1-K3 run with
-   its softmax scale 10% off must fail the bf16 check.  Fused RMSNorm (K7
-   forward, K8 backward) at h 2048, 4096 and 4100 (the scalar path), row
+   round P and dS to bf16 before their products).  bf16 K1-K3 at head_dim
+   64 / 128 run the Hopper kernels (``csrc/flash_fwd_hopper.cu``,
+   ``csrc/flash_bwd_hopper.cu``; each row of the ``kernels`` line names
+   its ``path``), fp32 and head_dim 256 the shared-memory ones.  Each of
+   K1-K3 run with its softmax scale 10% off must fail the bf16 check.
+   Fused RMSNorm (K7 forward, K8 backward) at h 2048, 4096 and 4100 (the
+   scalar path), row
    counts that K8's chunks do and do not divide, with fp32 x and w, bf16
    x with an fp32 w, and bf16 x and w, under the kernel-check tool's bars
    (fp32 y / dx atol 1e-5, dw norm-relative 1e-5; bf16 one step of the
@@ -44,8 +45,9 @@ Phases:
    K1-K3 and ``torch.nn.functional.rms_norm`` for K7 / K8, and each
    kernel's device time (``torch.profiler``, ``device_ms`` in the
    ``kernels`` line): where a wrapper takes longer on the host than its
-   kernel on the card, back to back the event time is the host's.  The
-   timers and the bound are the kernel-check tool's.
+   kernel on the card, back to back the event time is the host's.  K1-K3
+   and SDPA are timed again at head_dim 64 (the ``d64_*`` keys of their
+   rows).  The timers and the bound are the kernel-check tool's.
 3. ``kernel-check``: the port's kernel-check tool
    (``megatron_llm_tpu_torch.tools.kernel_check.main([])``, in-process,
    a few seconds on an H100): flash numerics in the JAX tool's eight cases, the RMSNorm
@@ -90,8 +92,9 @@ Phases:
    from ``--seed`` into a temporary directory, then one validation batch
    outside the timed window.  Every loss must be finite, the last at least
    1 nat below the first, and K1, K2 and K3 (counters set to 0 just
-   before) must each have launched, K1 768 times on the Hopper kernel
-   (8 layers x 4 microbatches x 12 steps, twice: selective recompute).  Prints the steady step time,
+   before) must each have launched on the Hopper kernels, K2 and K3 384
+   times (8 layers x 4 microbatches x 12 steps), K1 768 (twice that:
+   selective recompute).  Prints the steady step time,
    tokens/s and MFU against 989 TFLOP/s.
 8. ``train-check``: one train step of the same model at 2 layers and seq
    2048, on the same weights and batch, through the flash kernels and
@@ -447,6 +450,7 @@ class FlashCase:
 
 
 FLASH_SHAPE = dict(s=4096, n=32, nkv=32, d=128)   # the training shape
+FLASH_SHAPE_D64 = dict(FLASH_SHAPE, d=64)         # timed beside it
 FLASH_CASES = {
     "train-shape": FLASH_SHAPE,
     "gqa-32/8": dict(FLASH_SHAPE, nkv=8),
@@ -467,8 +471,8 @@ FLASH_CASES = {
 # norm-relative error ||kernel - plain|| / ||plain|| (None: not held).
 # fp32 runs the shared-memory kernels: summation order only (out and lse
 # 1e-5; gradients, longer sums, 1e-4).  bf16 inputs run the kernels that
-# train (K1's Hopper kernel, K2 / K3's register kernels; d 256 the
-# shared-memory ones), once with bf16 outputs (as training calls them) and
+# train (the Hopper kernels of K1-K3; d 256 the shared-memory ones), once
+# with bf16 outputs (as training calls them) and
 # once with fp32 outputs (as a ring caller does), against the fp32 plain
 # versions on the same inputs.  The kernels round P and dS to bf16 before
 # their products: each output is held by its norm-relative error (1e-2;
@@ -624,8 +628,8 @@ def flash_kernels(dev, report):
             flops=flops, max_abs_err=worst[kname],
             tflop_s=flops / min(ms_k_1, ms_k_2) / 1e9,
             library_ms=sdpa_fwd if kname == "flash_fwd" else sdpa_bwd)
-        if kname == "flash_fwd":   # which K1 kernel the training shape ran
-            rows[kname]["path"] = kernels.flash_fwd_kernel.last_path
+        # which kernel the training shape ran
+        rows[kname]["path"] = getattr(kernels, kname + "_kernel").last_path
         log(f"  {kname}: kernel {ms_k_1:.4f}/{ms_k_2:.4f} ms (device "
             f"{dev_ms:.4f} ms), plain "
             f"{ms_plain_1:.4f}/{ms_plain_2:.4f} ms, bound {b_ms:.4f} ms "
@@ -634,12 +638,36 @@ def flash_kernels(dev, report):
     print(f"kernels: flash at b 1, seq 4096, 32 heads, d 128, causal, bf16: "
           f"K1 ({rows['flash_fwd']['path']} kernel) "
           f"{rows['flash_fwd']['ms']:.4f} ms, K2 "
+          f"({rows['flash_bwd_dq']['path']}) "
           f"{rows['flash_bwd_dq']['ms']:.4f} ms, K3 "
+          f"({rows['flash_bwd_dkv']['path']}) "
           f"{rows['flash_bwd_dkv']['ms']:.4f} ms; "
           f"scaled_dot_product_attention forward {sdpa_fwd:.4f} ms, "
           f"backward {sdpa_bwd:.4f} ms (device kernels: "
           f"{'; '.join(sdpa_names)})", flush=True)
     report["sdpa_kernels"] = sdpa_names
+    del case
+    torch.cuda.empty_cache()
+    # the same times at head_dim 64 (b 1, seq 4096, 32 heads, causal, bf16)
+    case = FlashCase(torch, gen, dev, torch.bfloat16, **FLASH_SHAPE_D64)
+    case.residuals()
+    sdpa_fwd, sdpa_bwd, _ = _sdpa(torch, case)
+    for kname in FLASH_NAMES:
+        ms = min(cuda_ms(lambda: case.run(kname, True)) for _ in range(2))
+        dev_ms = device_ms(lambda: case.run(kname, True), iters=5)
+        b_ms, _ = bound(*case.work[kname], "bfloat16")
+        rows[kname].update(
+            d64_ms=ms, d64_device_ms=dev_ms, d64_bound_ms=b_ms,
+            d64_library_ms=sdpa_fwd if kname == "flash_fwd" else sdpa_bwd,
+            d64_path=getattr(kernels, kname + "_kernel").last_path)
+    print(f"kernels: flash at b 1, seq 4096, 32 heads, d 64, causal, bf16: " +
+          ", ".join(f"{kname} ({rows[kname]['d64_path']}) "
+                    f"{rows[kname]['d64_ms']:.4f} ms (device "
+                    f"{rows[kname]['d64_device_ms']:.4f}, bound "
+                    f"{rows[kname]['d64_bound_ms']:.4f})"
+                    for kname in FLASH_NAMES) +
+          f"; scaled_dot_product_attention forward {sdpa_fwd:.4f} ms, "
+          f"backward {sdpa_bwd:.4f} ms", flush=True)
     del case
     torch.cuda.empty_cache()
 
@@ -1472,14 +1500,17 @@ def phase_train(dev, report, args):
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     # K1 runs twice a layer and microbatch (the forward and selective
-    # recompute's second forward), on the Hopper kernel
-    k1_want = 2 * TRAIN_LAYERS * 4 * TRAIN_ITERS
-    if (flash["flash_fwd_kernel"] != k1_want
-            or kernels.flash_fwd_kernel.last_path != "hopper"):
-        raise AssertionError(
-            f"K1 launched {flash['flash_fwd_kernel']} times (want {k1_want}) "
-            f"on the {kernels.flash_fwd_kernel.last_path} kernel (want "
-            f"hopper)")
+    # recompute's second forward), K2 and K3 once (the backward), all on
+    # the Hopper kernels
+    per_step = TRAIN_LAYERS * 4 * TRAIN_ITERS
+    for name, want in (("flash_fwd_kernel", 2 * per_step),
+                       ("flash_bwd_dq_kernel", per_step),
+                       ("flash_bwd_dkv_kernel", per_step)):
+        path = getattr(kernels, name).last_path
+        if flash[name] != want or path != "hopper":
+            raise AssertionError(
+                f"{name} launched {flash[name]} times (want {want}) on the "
+                f"{path} kernel (want hopper)")
     step_s = 1.0 / result["steady_steps_per_sec"]
     tps = result["tokens_per_sec"]
     mfu = flops_per_token(cfg) * tps / PEAK_FLOPS["bfloat16"]
@@ -1696,13 +1727,13 @@ KERNEL_META = {
         library_note="torch.nn.functional.scaled_dot_product_attention "
                      "forward, is_causal=True"),
     "flash_bwd_dq": dict(
-        source="megatron_llm_tpu_torch/ops/kernels/csrc/flash_bwd.cu",
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/flash_bwd_hopper.cu",
         replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:214",
         wrapper="flash_bwd_dq_kernel", launches_from="train_launches",
         library_note="scaled_dot_product_attention backward (dq, dk and dv "
                      "together: the same time stands on K2 and K3)"),
     "flash_bwd_dkv": dict(
-        source="megatron_llm_tpu_torch/ops/kernels/csrc/flash_bwd.cu",
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/flash_bwd_hopper.cu",
         replaces="megatron_llm_tpu/ops/pallas/flash_attention.py:264",
         wrapper="flash_bwd_dkv_kernel", launches_from="train_launches",
         library_note="scaled_dot_product_attention backward (dq, dk and dv "
@@ -1822,7 +1853,9 @@ def main(argv=None) -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms"),
                 "library_note": meta["library_note"],
-                **{k: row[k] for k in ("tflop_s", "path") if k in row},
+                "path": row.get("path", "single"),
+                **{k: row[k] for k in row
+                   if k == "tflop_s" or k.startswith("d64_")},
             })
         print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

@@ -98,10 +98,49 @@ def _validate(payload: dict):
         return None, "random_seed must be a positive integer"
     p["random_seed"] = random_seed
 
-    if payload.get("beam_width") is not None:
+    beam_width = payload.get("beam_width")
+    if beam_width is not None:
+        if not isinstance(beam_width, int) or beam_width < 1:
+            return None, "beam_width must be an integer > 1"
+        if len(prompts) > 1:
+            return None, "When doing beam_search, batch size must be 1"
+    p["beam_width"] = beam_width
+
+    stop_token = payload.get("stop_token", 50256)
+    if not isinstance(stop_token, int):
+        return None, "stop_token must be an integer"
+    p["stop_token"] = stop_token
+
+    length_penalty = payload.get("length_penalty", 1.0)
+    if isinstance(length_penalty, int):
+        length_penalty = float(length_penalty)
+    if not isinstance(length_penalty, float):
+        return None, "length_penalty must be a float"
+    p["length_penalty"] = length_penalty
+
+    # scheduling control plane: priority class for the priority policy,
+    # soft deadlines for the slo policy
+    priority = payload.get("priority", 1)
+    if not isinstance(priority, int) or not 0 <= priority <= 9:
+        return None, "priority must be an integer between 0 and 9"
+    p["priority"] = priority
+    for field in ("ttft_deadline_ms", "tpot_deadline_ms"):
+        val = payload.get(field)
+        if val is not None and (not isinstance(val, (int, float))
+                                or isinstance(val, bool) or val <= 0):
+            return None, f"{field} must be a positive number of milliseconds"
+        p[field] = None if val is None else float(val)
+
+    stream = payload.get("stream", False)
+    if not isinstance(stream, bool):
+        return None, "stream must be a boolean value"
+    p["stream"] = stream
+
+    # well-formed requests for features of later slices
+    if beam_width is not None:
         return None, ("beam_width (beam search) is not in this slice of the "
                       "PyTorch port (it comes with the legacy-engine slice)")
-    if payload.get("stream"):
+    if stream:
         return None, ("stream (token streaming) is not in this slice of the "
                       "PyTorch port (it comes with the streaming slice)")
     if payload.get("handoff_to") is not None:

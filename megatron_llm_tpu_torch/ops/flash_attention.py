@@ -5,8 +5,9 @@
 function of that name and runs a ``torch.autograd.Function`` that saves
 ``q, k, v, out, lse`` and recomputes the probabilities in the backward
 (the flash-2 residual scheme).  On CUDA tensors the Function launches the
-hand-written kernels (``ops/kernels/csrc/flash_fwd.cu`` K1,
-``flash_bwd.cu`` K2 + K3) or raises; on CPU tensors it runs the plain
+hand-written kernels (``ops/kernels/csrc/flash_fwd_hopper.cu`` /
+``flash_fwd.cu`` K1, ``flash_bwd_hopper.cu`` / ``flash_bwd.cu`` K2 + K3, as
+``kernels.flash_path`` picks) or raises; on CPU tensors it runs the plain
 versions below, which compute the same function densely in fp32 with the
 same masks, the same ``-1e30`` sentinel, zeros for fully masked rows and
 the log-sum-exp laid out ``[b, n, sq, 1]``.  ``delta = rowsum(do * o)``

@@ -169,16 +169,16 @@ def paged_prefill_kernel(q, k_pool, v_pool, block_tables, start, *,
 
 
 # ---------------------------------------------------------------------------
-# flash attention (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+# flash attention (csrc/flash_{fwd,bwd}.cu, csrc/flash_{fwd,bwd}_hopper.cu)
 # ---------------------------------------------------------------------------
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_rows_aligned(t: torch.Tensor) -> bool:
-    """Whether the flash kernels can read ``t``'s rows with 16-byte loads:
-    a contiguous last dimension, a 16-byte-aligned start and 16-byte
-    strides."""
+    """Whether the flash kernels can read ``t``'s rows with 16-byte loads
+    (and TMA): a contiguous last dimension, a 16-byte-aligned start and
+    16-byte strides."""
     esz = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all((st * esz) % 16 == 0 for st in t.stride()[:-1]))
@@ -253,13 +253,14 @@ def _flash_tail(dims, scale, causal, sliding_window, q, out_dtype):
             _stream(q.device))
 
 
-FLASH_FWD_PATHS = ("smem", "hopper")   # flash_fwd_launch's `path` codes
+FLASH_PATHS = ("smem", "hopper")   # the flash entry points' `path` codes
 
 
-def flash_fwd_path(dtype: torch.dtype, head_dim: int) -> str:
-    """Which K1 kernel runs: ``"hopper"`` (``csrc/flash_fwd_hopper.cu``:
-    TMA, wgmma, warp-specialised warpgroups) for bf16 at head_dim 64 and
-    128, ``"smem"`` (the shared-memory kernel of ``csrc/flash_fwd.cu``)
+def flash_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels K1-K3 run: ``"hopper"`` (``csrc/flash_fwd_hopper.cu``,
+    ``csrc/flash_bwd_hopper.cu``: TMA, wgmma, warp-specialised
+    warpgroups) for bf16 at head_dim 64 and 128, ``"smem"`` (the
+    shared-memory kernels of ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``)
     for every other type and head_dim."""
     if dtype == torch.bfloat16 and head_dim in (64, 128):
         return "hopper"
@@ -285,11 +286,27 @@ def flash_tma_geometry(t: torch.Tensor) -> list:
     return dims + strides
 
 
+def _hopper_args(path, tensors):
+    """The Hopper kernels' extra arguments: the TMA geometry of ``tensors``
+    (a host array) and the persistent kernel's work-tile counter (one int
+    of device memory, zeroed by the launch); ``(None, None)`` on the
+    shared-memory path."""
+    if path != "hopper":
+        return None, None
+    geo = [x for t in tensors for x in flash_tma_geometry(t)]
+    counter = torch.empty(1, device=tensors[0].device, dtype=torch.int32)
+    return (ctypes.c_longlong * len(geo))(*geo), counter
+
+
+def _ptr_or_null(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
+    return None if t is None else _ptr(t)
+
+
 def flash_fwd_kernel(q, k, v, segment_ids=None, *, scale: float,
                      causal: bool = True, sliding_window: Optional[int] = None,
                      out_dtype: Optional[torch.dtype] = None):
     """CUDA flash-attention forward (K1; ``csrc/flash_fwd_hopper.cu`` or
-    ``csrc/flash_fwd.cu`` as :func:`flash_fwd_path` picks, recorded in
+    ``csrc/flash_fwd.cu`` as :func:`flash_path` picks, recorded in
     ``flash_fwd_kernel.last_path``); same contract as
     ``ops.flash_attention.flash_fwd_plain``: returns ``(out [b, sq, n, d],
     lse [b, n, sq, 1] fp32)``."""
@@ -301,13 +318,8 @@ def flash_fwd_kernel(q, k, v, segment_ids=None, *, scale: float,
     lse = torch.empty((b, n, sq, 1), device=q.device, dtype=torch.float32)
     if out.numel() == 0:
         return out, lse
-    path = flash_fwd_path(q.dtype, d)
-    geo = counter = None
-    if path == "hopper":
-        geo = [x for t in (q, k, v) for x in flash_tma_geometry(t)]
-        geo = (ctypes.c_longlong * len(geo))(*geo)
-        # the persistent kernel's work-tile counter (zeroed by the launch)
-        counter = torch.empty(1, device=q.device, dtype=torch.int32)
+    path = flash_path(q.dtype, d)
+    geo, counter = _hopper_args(path, (q, k, v))
     lib = build.library()
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
     *tail, stream = _flash_tail(dims, scale, causal, sliding_window, q,
@@ -315,8 +327,8 @@ def flash_fwd_kernel(q, k, v, segment_ids=None, *, scale: float,
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             _ptr(q), _ptr(k), _ptr(v), seg, seg, _ptr(out), _ptr(lse),
-            c_strides, geo, counter if counter is None else _ptr(counter),
-            *tail, FLASH_FWD_PATHS.index(path), stream)
+            c_strides, geo, _ptr_or_null(counter), *tail,
+            FLASH_PATHS.index(path), stream)
     _raise_on(err, name, lib)
     flash_fwd_kernel.launches += 1
     flash_fwd_kernel.last_path = path
@@ -332,28 +344,45 @@ def _bwd_checks(name, q, k, v, do, lse, delta, segment_ids):
     return dims, strides, seg
 
 
+def _bwd_launch(name, entry, checked, q, k, v, do, lse, delta, outs, scale,
+                causal, sliding_window, out_dtype):
+    """Launch K2 (``entry`` flash_bwd_dq_launch) or K3 (flash_bwd_dkv_launch)
+    into ``outs`` on the path :func:`flash_path` picks; returns the path."""
+    dims, strides, seg = checked
+    path = flash_path(q.dtype, dims[-1])
+    geo, counter = _hopper_args(path, (q, k, v, do))
+    lib = build.library()
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    *tail, stream = _flash_tail(dims, scale, causal, sliding_window, q,
+                                out_dtype)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), seg,
+            seg, *map(_ptr, outs), c_strides, geo, _ptr_or_null(counter),
+            *tail, FLASH_PATHS.index(path), stream)
+    _raise_on(err, name, lib)
+    return path
+
+
 def flash_bwd_dq_kernel(q, k, v, do, lse, delta, segment_ids=None, *,
                         scale: float, causal: bool = True,
                         sliding_window: Optional[int] = None,
                         out_dtype: Optional[torch.dtype] = None):
-    """CUDA flash-attention dq (``csrc/flash_bwd.cu``, K2); same contract
-    as ``ops.flash_attention.flash_bwd_dq_plain``."""
+    """CUDA flash-attention dq (K2; ``csrc/flash_bwd_hopper.cu`` or
+    ``csrc/flash_bwd.cu`` as :func:`flash_path` picks, recorded in
+    ``flash_bwd_dq_kernel.last_path``); same contract as
+    ``ops.flash_attention.flash_bwd_dq_plain``."""
     name = "flash_bwd_dq_kernel"
-    dims, strides, seg = _bwd_checks(name, q, k, v, do, lse, delta,
-                                     segment_ids)
+    checked = _bwd_checks(name, q, k, v, do, lse, delta, segment_ids)
     out_dtype = _out_dtype(q, out_dtype)
     dq = torch.empty(q.shape, device=q.device, dtype=out_dtype)
     if dq.numel() == 0:
         return dq
-    lib = build.library()
-    c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dq_launch(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), seg,
-            seg, _ptr(dq), c_strides,
-            *_flash_tail(dims, scale, causal, sliding_window, q, out_dtype))
-    _raise_on(err, name, lib)
+    path = _bwd_launch(name, "flash_bwd_dq_launch", checked, q, k, v, do,
+                       lse, delta, (dq,), scale, causal, sliding_window,
+                       out_dtype)
     flash_bwd_dq_kernel.launches += 1
+    flash_bwd_dq_kernel.last_path = path
     return dq
 
 
@@ -361,25 +390,22 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, segment_ids=None, *,
                          scale: float, causal: bool = True,
                          sliding_window: Optional[int] = None,
                          out_dtype: Optional[torch.dtype] = None):
-    """CUDA flash-attention dk / dv (``csrc/flash_bwd.cu``, K3); same
-    contract as ``ops.flash_attention.flash_bwd_dkv_plain``."""
+    """CUDA flash-attention dk / dv (K3; ``csrc/flash_bwd_hopper.cu`` or
+    ``csrc/flash_bwd.cu`` as :func:`flash_path` picks, recorded in
+    ``flash_bwd_dkv_kernel.last_path``); same contract as
+    ``ops.flash_attention.flash_bwd_dkv_plain``."""
     name = "flash_bwd_dkv_kernel"
-    dims, strides, seg = _bwd_checks(name, q, k, v, do, lse, delta,
-                                     segment_ids)
+    checked = _bwd_checks(name, q, k, v, do, lse, delta, segment_ids)
     out_dtype = _out_dtype(q, out_dtype)
     dk = torch.empty(k.shape, device=q.device, dtype=out_dtype)
     dv = torch.empty(v.shape, device=q.device, dtype=out_dtype)
     if dk.numel() == 0:
         return dk, dv
-    lib = build.library()
-    c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dkv_launch(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), seg,
-            seg, _ptr(dk), _ptr(dv), c_strides,
-            *_flash_tail(dims, scale, causal, sliding_window, q, out_dtype))
-    _raise_on(err, name, lib)
+    path = _bwd_launch(name, "flash_bwd_dkv_launch", checked, q, k, v, do,
+                       lse, delta, (dk, dv), scale, causal, sliding_window,
+                       out_dtype)
     flash_bwd_dkv_kernel.launches += 1
+    flash_bwd_dkv_kernel.last_path = path
     return dk, dv
 
 
@@ -478,7 +504,9 @@ paged_prefill_kernel.launches = 0
 flash_fwd_kernel.launches = 0
 flash_fwd_kernel.last_path = None
 flash_bwd_dq_kernel.launches = 0
+flash_bwd_dq_kernel.last_path = None
 flash_bwd_dkv_kernel.launches = 0
+flash_bwd_dkv_kernel.last_path = None
 rms_norm_fwd_kernel.launches = 0
 rms_norm_bwd_kernel.launches = 0
 

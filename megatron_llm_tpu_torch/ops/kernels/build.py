@@ -123,19 +123,15 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             lib.paged_prefill_launch.restype = _c_int
             lib.paged_error_string.argtypes = [_c_int]
             lib.paged_error_string.restype = ctypes.c_char_p
-            # pointers, then the host array of element strides, then
-            # b, sq, skv, n, nkv, d, scale, causal, window, dtype,
-            # out_f32, stream; the forward also takes the host array of
-            # TMA geometry and the device tile counter after the strides
-            # and its path before the stream
-            dims = [_c_int] * 6 + [ctypes.c_float] + [_c_int] * 4
-            lib.flash_fwd_launch.argtypes = (
-                [_c_void] * 10 + dims + [_c_int, _c_void])
-            lib.flash_fwd_launch.restype = _c_int
-            for name, n_ptrs in (("flash_bwd_dq_launch", 9),
+            # tensor pointers, the host arrays of element strides and of
+            # TMA geometry, the device tile counter, then b, sq, skv, n,
+            # nkv, d, scale, causal, window, dtype, out_f32, path, stream
+            dims = [_c_int] * 6 + [ctypes.c_float] + [_c_int] * 5
+            for name, n_ptrs in (("flash_fwd_launch", 7),
+                                 ("flash_bwd_dq_launch", 9),
                                  ("flash_bwd_dkv_launch", 10)):
                 fn = getattr(lib, name)
-                fn.argtypes = [_c_void] * (n_ptrs + 1) + dims + [_c_void]
+                fn.argtypes = [_c_void] * (n_ptrs + 3) + dims + [_c_void]
                 fn.restype = _c_int
             # x, w, y; rows, h, eps, x dtype, w dtype, stream
             lib.rms_norm_fwd_launch.argtypes = (

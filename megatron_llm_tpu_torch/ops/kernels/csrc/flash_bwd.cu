@@ -21,10 +21,10 @@
 //   q tiles, in transposed form so every product is A B or A B^T:
 //   S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q.
 //
-// Each comes in two paths, as the forward: the register path for bf16 at
-// head_dim 64 / 128 (*_reg: scores and dS in mma.sync fragments, the
-// walked tiles double-buffered by cp.async) and the shared-memory path for
-// fp32 and head_dim 256 (score tiles in shared memory, one warp per row).
+// These are the shared-memory kernels, for fp32 and head_dim 256 (score
+// tiles in shared memory, one warp per row).  bf16 at head_dim 64 / 128
+// takes the Hopper kernels of flash_bwd_hopper.cu, as the entry points'
+// `path` says (ops/kernels/__init__.py: flash_path).
 #include "flash_common.cuh"
 
 namespace flash {
@@ -196,243 +196,29 @@ __global__ void __launch_bounds__(THREADS) bwd_dkv_kernel(const Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// The register path (bf16, head_dim 64 / 128); see flash_common.cuh.
-// ---------------------------------------------------------------------------
-
-// K2: 4 warps own 16 query rows each of a 64-row q tile (q, do, lse and
-// delta stay in shared memory); per 64-row kv tile, S = Q K^T and
-// dP = dO V^T in fragments, dS in registers, dQ += dS K into fp32
-// fragments.
-template <int D>
-__global__ void __launch_bounds__(RTHREADS) bwd_dq_kernel_reg(const Params p) {
-  constexpr int BQ = 64, BKV = 64, LD = D + 8;
-  constexpr int NJ = BKV / 8, ND = D / 8, KT = BKV / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + BQ * LD;
-  bf16* kv_s = do_s + BQ * LD;  // [stage][k, v][BKV][LD]
-  float* lse_s = reinterpret_cast<float*>(kv_s + 4 * BKV * LD);  // log2 units
-  float* delta_s = lse_s + BQ;
-  int* segq_s = reinterpret_cast<int*>(delta_s + BQ);
-  int* segk_s = segq_s + BQ;  // [stage][BKV]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kvh = h / (p.n / p.nkv);
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gc = (lane & 3) * 2;
-  const int lr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
-
-  const bf16* q = static_cast<const bf16*>(p.q) + bi * p.q_sb + h * p.q_sh;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + bi * p.do_sb + h * p.do_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
-  const long long vec0 = ((long long)bi * p.n + h) * p.sq;
-  const int* seg_q = p.seg_q ? p.seg_q + (long long)bi * p.sq : nullptr;
-  const int* seg_kv = p.seg_kv ? p.seg_kv + (long long)bi * p.skv : nullptr;
-
-  int lo = 0, hi = (p.skv + BKV - 1) / BKV;
-  while (lo < hi && !run_tile(q0, lo * BKV, BQ, BKV, p)) ++lo;
-  while (hi > lo && !run_tile(q0, (hi - 1) * BKV, BQ, BKV, p)) --hi;
-
-  auto fetch = [&](int kt, int stage) {
-    bf16* dst = kv_s + stage * 2 * BKV * LD;
-    load_tile_async<BKV, D, LD>(dst, k, p.k_ss, kt * BKV, p.skv);
-    load_tile_async<BKV, D, LD>(dst + BKV * LD, v, p.v_ss, kt * BKV, p.skv);
-    for (int i = threadIdx.x; i < BKV; i += RTHREADS)
-      segk_s[stage * BKV + i] =
-          (seg_kv && kt * BKV + i < p.skv) ? seg_kv[kt * BKV + i] : 0;
-  };
-  load_tile_async<BQ, D, LD>(q_s, q, p.q_ss, q0, p.sq);
-  load_tile_async<BQ, D, LD>(do_s, dout, p.do_ss, q0, p.sq);
-  for (int i = threadIdx.x; i < BQ; i += RTHREADS) {
-    const bool ok = q0 + i < p.sq;
-    lse_s[i] = ok ? p.lse[vec0 + q0 + i] * LOG2E : 0.f;
-    delta_s[i] = ok ? p.delta[vec0 + q0 + i] : 0.f;
-    segq_s[i] = (seg_q && ok) ? seg_q[q0 + i] : 0;
-  }
-  if (lo < hi) fetch(lo, 0);
-  cp_async_commit();
-
-  float dq[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-  const float sl2 = p.scale * LOG2E;
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int stage = (kt - lo) & 1;
-    if (kt + 1 < hi) fetch(kt + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_t = kv_s + stage * 2 * BKV * LD;
-    const int kv0 = kt * BKV;
-    float s[NJ][4], dp[NJ][4];
-    warp_gemm_nt<NJ, D>(s, q_s + warp * 16 * LD, LD, k_t, LD);
-    warp_gemm_nt<NJ, D>(dp, do_s + warp * 16 * LD, LD, k_t + BKV * LD, LD);
-    const bool full = tile_full(q0, kv0, BQ, BKV, p);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = lr[e >> 1], c = 8 * j + gc + (e & 1);
-        const bool ok = full || allowed(q0 + r, kv0 + c, segq_s[r],
-                                        segk_s[stage * BKV + c], p);
-        const float pr = ok ? exp2f(s[j][e] * sl2 - lse_s[r]) : 0.f;
-        s[j][e] = pr * (dp[j][e] - delta_s[r]) * p.scale;
-      }
-    uint32_t da[KT][4];
-    to_a_frags<NJ>(da, s);
-    warp_gemm_pv<ND, KT>(dq, da, k_t, LD);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  const int rows[2] = {q0 + lr[0], q0 + lr[1]};
-  const float one[2] = {1.f, 1.f};
-  store_frags<ND>(p.out, ((long long)bi * p.sq * p.n + h) * D, (long long)p.n * D, dq,
-                  rows, p.sq, one, p.out_f32);
-}
-
-// K3: 4 warps own 16 kv rows each of a 64-row kv tile (k and v stay in
-// shared memory); the block walks the g query heads of its group and their
-// 32-row q tiles (q, do, lse, delta by cp.async / loads into two stages):
-// S^T = K Q^T and dP^T = V dO^T in fragments, then dV += P^T dO and
-// dK += dS^T Q into fp32 fragments.
-template <int D>
-__global__ void __launch_bounds__(RTHREADS) bwd_dkv_kernel_reg(const Params p) {
-  constexpr int BKV = 64, BQ = 32, LD = D + 8;
-  constexpr int NJ = BQ / 8, ND = D / 8, KT = BQ / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + BKV * LD;
-  bf16* qd_s = v_s + BKV * LD;  // [stage][q, do][BQ][LD]
-  float* vec_s = reinterpret_cast<float*>(qd_s + 4 * BQ * LD);  // [stage][lse, delta][BQ]
-  int* segq_s = reinterpret_cast<int*>(vec_s + 4 * BQ);  // [stage][BQ]
-  int* segk_s = segq_s + 2 * BQ;
-
-  const int kvh = blockIdx.y, bi = blockIdx.z;
-  const int g = p.n / p.nkv;
-  const int kv0 = blockIdx.x * BKV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gc = (lane & 3) * 2;
-  const int lr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
-
-  const bf16* k = static_cast<const bf16*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
-  const int* seg_q = p.seg_q ? p.seg_q + (long long)bi * p.sq : nullptr;
-  const int* seg_kv = p.seg_kv ? p.seg_kv + (long long)bi * p.skv : nullptr;
-
-  int lo = 0, hi = (p.sq + BQ - 1) / BQ;  // the q tiles to visit, per head
-  while (lo < hi && !run_tile(lo * BQ, kv0, BQ, BKV, p)) ++lo;
-  while (hi > lo && !run_tile((hi - 1) * BQ, kv0, BQ, BKV, p)) --hi;
-  const int nq = hi - lo, total = g * nq;  // the GQA sum: every head of the group
-
-  auto fetch = [&](int idx, int stage) {
-    const int h = kvh * g + idx / nq;
-    const int q0 = (lo + idx % nq) * BQ;
-    const bf16* q = static_cast<const bf16*>(p.q) + bi * p.q_sb + h * p.q_sh;
-    const bf16* dout = static_cast<const bf16*>(p.dout) + bi * p.do_sb + h * p.do_sh;
-    bf16* dst = qd_s + stage * 2 * BQ * LD;
-    load_tile_async<BQ, D, LD>(dst, q, p.q_ss, q0, p.sq);
-    load_tile_async<BQ, D, LD>(dst + BQ * LD, dout, p.do_ss, q0, p.sq);
-    const long long vec0 = ((long long)bi * p.n + h) * p.sq;
-    for (int i = threadIdx.x; i < BQ; i += RTHREADS) {
-      const bool ok = q0 + i < p.sq;
-      vec_s[stage * 2 * BQ + i] = ok ? p.lse[vec0 + q0 + i] * LOG2E : 0.f;
-      vec_s[stage * 2 * BQ + BQ + i] = ok ? p.delta[vec0 + q0 + i] : 0.f;
-      segq_s[stage * BQ + i] = (seg_q && ok) ? seg_q[q0 + i] : 0;
-    }
-  };
-  load_tile_async<BKV, D, LD>(k_s, k, p.k_ss, kv0, p.skv);
-  load_tile_async<BKV, D, LD>(v_s, v, p.v_ss, kv0, p.skv);
-  for (int i = threadIdx.x; i < BKV; i += RTHREADS)
-    segk_s[i] = (seg_kv && kv0 + i < p.skv) ? seg_kv[kv0 + i] : 0;
-  if (total > 0) fetch(0, 0);
-  cp_async_commit();
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
-  const float sl2 = p.scale * LOG2E;
-
-  for (int idx = 0; idx < total; ++idx) {
-    const int stage = idx & 1;
-    if (idx + 1 < total) fetch(idx + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* q_t = qd_s + stage * 2 * BQ * LD;
-    const bf16* do_t = q_t + BQ * LD;
-    const float* lse = vec_s + stage * 2 * BQ;
-    const float* delta = lse + BQ;
-    const int* segq = segq_s + stage * BQ;
-    const int q0 = (lo + idx % nq) * BQ;
-    float st[NJ][4], dpt[NJ][4];
-    warp_gemm_nt<NJ, D>(st, k_s + warp * 16 * LD, LD, q_t, LD);
-    warp_gemm_nt<NJ, D>(dpt, v_s + warp * 16 * LD, LD, do_t, LD);
-    const bool full = tile_full(q0, kv0, BQ, BKV, p);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // row: kv lr[e / 2], column: q c
-        const int r = lr[e >> 1], c = 8 * j + gc + (e & 1);
-        const bool ok = full || allowed(q0 + c, kv0 + r, segq[c], segk_s[r], p);
-        const float pr = ok ? exp2f(st[j][e] * sl2 - lse[c]) : 0.f;
-        st[j][e] = pr;
-        dpt[j][e] = pr * (dpt[j][e] - delta[c]) * p.scale;
-      }
-    uint32_t pa[KT][4];
-    to_a_frags<NJ>(pa, st);
-    warp_gemm_pv<ND, KT>(dv, pa, do_t, LD);
-    to_a_frags<NJ>(pa, dpt);
-    warp_gemm_pv<ND, KT>(dk, pa, q_t, LD);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  const int rows[2] = {kv0 + lr[0], kv0 + lr[1]};
-  const float one[2] = {1.f, 1.f};
-  const long long base = ((long long)bi * p.skv * p.nkv + kvh) * D;
-  store_frags<ND>(p.dk, base, (long long)p.nkv * D, dk, rows, p.skv, one, p.out_f32);
-  store_frags<ND>(p.dv, base, (long long)p.nkv * D, dv, rows, p.skv, one, p.out_f32);
-}
-
 template <typename T, int D>
 cudaError_t launch_dq(const Params& p, cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value && D <= 128) {
-    constexpr int smem = (2 * 64 + 4 * 64) * (D + 8) * 2 + 4 * 64 * 4 + 2 * 64 * 4;
-    const dim3 grid((p.sq + 63) / 64, p.n, p.b);
-    return launch(bwd_dq_kernel_reg<D>, grid, RTHREADS, smem, st, p);
-  } else {
-    using S = Shape<T, D>;
-    constexpr int smem = 4 * S::TILE_T + 2 * S::TILE_S + S::TILE_P + S::TILE_A +
-                         4 * S::VEC_F;
-    static_assert(smem <= 232448, "shared memory");
-    const dim3 grid((p.sq + S::B - 1) / S::B, p.n, p.b);
-    return launch(bwd_dq_kernel<T, D>, grid, THREADS, smem, st, p);
-  }
+  using S = Shape<T, D>;
+  constexpr int smem = 4 * S::TILE_T + 2 * S::TILE_S + S::TILE_P + S::TILE_A +
+                       4 * S::VEC_F;
+  static_assert(smem <= 232448, "shared memory");
+  const dim3 grid((p.sq + S::B - 1) / S::B, p.n, p.b);
+  return launch(bwd_dq_kernel<T, D>, grid, THREADS, smem, st, p);
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Params& p, cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value && D <= 128) {
-    constexpr int smem = (2 * 64 + 4 * 32) * (D + 8) * 2 + 6 * 32 * 4 + 64 * 4;
-    const dim3 grid((p.skv + 63) / 64, p.nkv, p.b);
-    return launch(bwd_dkv_kernel_reg<D>, grid, RTHREADS, smem, st, p);
-  } else {
-    using S = Shape<T, D>;
-    constexpr int smem = 4 * S::TILE_T + 2 * S::TILE_S + 2 * S::TILE_P +
-                         2 * S::TILE_A + 4 * S::VEC_F;
-    static_assert(smem <= 232448, "shared memory");
-    const dim3 grid((p.skv + S::B - 1) / S::B, p.nkv, p.b);
-    return launch(bwd_dkv_kernel<T, D>, grid, THREADS, smem, st, p);
-  }
+  using S = Shape<T, D>;
+  constexpr int smem = 4 * S::TILE_T + 2 * S::TILE_S + 2 * S::TILE_P +
+                       2 * S::TILE_A + 4 * S::VEC_F;
+  static_assert(smem <= 232448, "shared memory");
+  const dim3 grid((p.skv + S::B - 1) / S::B, p.nkv, p.b);
+  return launch(bwd_dkv_kernel<T, D>, grid, THREADS, smem, st, p);
 }
+
+// flash_bwd_hopper.cu: bf16 at head_dim 64 / 128
+cudaError_t launch_bwd_hopper(const Params& p, const long long* geo, int* tile_counter, int d,
+                              bool dkv, cudaStream_t st);
 
 static flash::Params bwd_params(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -465,39 +251,56 @@ static flash::Params bwd_params(const void* q, const void* k, const void* v,
 }  // namespace flash
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: q, k, v, do as (batch, seq,
-// head) element strides, 12 values; lse / delta [b, n, sq] fp32.  Returns a
-// cudaError_t.
+// head) element strides, 12 values; lse / delta [b, n, sq] fp32.  path: 0 =
+// the shared-memory kernels (strides), 1 = the Hopper kernels (bf16,
+// head_dim 64 / 128; `geo` holds q's, k's, v's and do's TMA geometry, 28
+// values, and `tile_counter` points at one int of device memory), as
+// ops/kernels/__init__.py's flash_path chose it.  Returns a cudaError_t.
+static int bwd_launch(flash::Params& p, const long long* geo, void* tile_counter, int d,
+                      int dtype, int path, bool dkv, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 1)
+    return dtype == 1 ? (int)flash::launch_bwd_hopper(p, geo, static_cast<int*>(tile_counter),
+                                                      d, dkv, st)
+                      : (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (dkv) {
+    FLASH_DISPATCH(flash::launch_dkv, dtype, d, p, st, err)
+  } else {
+    FLASH_DISPATCH(flash::launch_dq, dtype, d, p, st, err)
+  }
+  return (int)err;
+}
+
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse,
                                    const void* delta, const void* seg_q,
                                    const void* seg_kv, void* dq,
-                                   const long long* strides, int b, int sq,
+                                   const long long* strides, const long long* geo,
+                                   void* tile_counter, int b, int sq,
                                    int skv, int n, int nkv, int d, float scale,
                                    int causal, int window, int dtype,
-                                   int out_f32, void* stream) {
+                                   int out_f32, int path, void* stream) {
   flash::Params p = flash::bwd_params(q, k, v, dout, lse, delta, seg_q, seg_kv,
                                       strides, b, sq, skv, n, nkv, scale, causal,
                                       window, out_f32);
   p.out = dq;
-  cudaError_t err = cudaSuccess;
-  FLASH_DISPATCH(flash::launch_dq, dtype, d, p, static_cast<cudaStream_t>(stream), err)
-  return (int)err;
+  return bwd_launch(p, geo, tile_counter, d, dtype, path, false, stream);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse,
                                     const void* delta, const void* seg_q,
                                     const void* seg_kv, void* dk, void* dv,
-                                    const long long* strides, int b, int sq,
+                                    const long long* strides, const long long* geo,
+                                    void* tile_counter, int b, int sq,
                                     int skv, int n, int nkv, int d, float scale,
                                     int causal, int window, int dtype,
-                                    int out_f32, void* stream) {
+                                    int out_f32, int path, void* stream) {
   flash::Params p = flash::bwd_params(q, k, v, dout, lse, delta, seg_q, seg_kv,
                                       strides, b, sq, skv, n, nkv, scale, causal,
                                       window, out_f32);
   p.dk = dk;
   p.dv = dv;
-  cudaError_t err = cudaSuccess;
-  FLASH_DISPATCH(flash::launch_dkv, dtype, d, p, static_cast<cudaStream_t>(stream), err)
-  return (int)err;
+  return bwd_launch(p, geo, tile_counter, d, dtype, path, true, stream);
 }

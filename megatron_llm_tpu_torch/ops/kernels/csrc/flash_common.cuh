@@ -1,21 +1,21 @@
 // Shared device code of the flash-attention kernels (flash_fwd.cu and
-// flash_fwd_hopper.cu: K1, flash_bwd.cu: K2 and K3).
+// flash_fwd_hopper.cu: K1, flash_bwd.cu and flash_bwd_hopper.cu: K2 and K3).
 //
-// Three paths.  bf16 at head_dim 64 / 128 (the training shapes) takes, in
-// K1, the Hopper kernel of flash_fwd_hopper.cu (TMA, wgmma; it uses
-// Params, the tile tests, the quad reductions, to_a_frags and store_frags
-// from here) and, in K2 / K3, the register-resident kernels described further
-// down.  fp32, and bf16 at head_dim 256, take the shared-memory path:
-// every kernel works on tiles staged in shared memory: q / k / v / do tiles
-// of B rows x D dims in the input type T, a B x B fp32 score tile, a B x B
-// probability (or dS) tile in T that feeds the next product, and B x D fp32
-// accumulators.  The tiled products are `gemm` below: `mma.sync`
-// m16n8k16 with bf16 inputs and fp32 sums (operands fetched with
-// `ldmatrix`) for bf16, and an fp32 FMA loop for fp32 inputs (the tensor
-// cores' TF32 keeps about three digits, too few for the fp32 contract).
-// The softmax and the masks run between the products, one warp per row.
-// Tile rows are B = 32, which keeps every kernel's shared memory under the
-// 227 KB a block may use at head_dim 256.
+// Two paths.  bf16 at head_dim 64 / 128 (the training shapes) takes the
+// Hopper kernels of flash_fwd_hopper.cu and flash_bwd_hopper.cu (TMA,
+// wgmma, warp-specialised warpgroups; they use Params, the tile tests, the
+// quad reductions, to_a_frags and store_frags from here).  fp32, and bf16
+// at head_dim 256, take the shared-memory path: every kernel works on
+// tiles staged in shared memory: q / k / v / do tiles of B rows x D dims in
+// the input type T, a B x B fp32 score tile, a B x B probability (or dS)
+// tile in T that feeds the next product, and B x D fp32 accumulators.  The
+// tiled products are `gemm` below: `mma.sync` m16n8k16 with bf16 inputs
+// and fp32 sums (operands fetched with `ldmatrix`) for bf16, and an fp32
+// FMA loop for fp32 inputs (the tensor cores' TF32 keeps about three
+// digits, too few for the fp32 contract).  The softmax and the masks run
+// between the products, one warp per row.  Tile rows are B = 32, which
+// keeps every kernel's shared memory under the 227 KB a block may use at
+// head_dim 256.
 //
 // Masks are built from global positions exactly as the Pallas kernels
 // build them (megatron_llm_tpu/ops/pallas/flash_attention.py: _mask,
@@ -298,59 +298,28 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
 }
 
 // ---------------------------------------------------------------------------
-// The register-resident path of K2 / K3 at bf16, head_dim 64 / 128
-// (FlashAttention-2 style).  A block of 4 warps; each warp owns 16 rows of
-// the tile it iterates from (query rows in K2, kv rows in K3) and keeps its
-// scores, probabilities and fp32 accumulators in mma.sync fragments: the
-// score fragment of one product is repacked in registers as the A operand
-// of the next (to_a_frags), so nothing of it goes through shared memory
-// (K1's Hopper kernel repacks its wgmma accumulators the same way).  The
-// tiles it walks over arrive by cp.async into two shared-memory stages, the
-// next tile's copy in flight while the current one is consumed.
+// Pieces of the Hopper kernels (bf16, head_dim 64 / 128).  A wgmma
+// accumulator holds, in each warp, 16 rows of the tile in the mma.sync C
+// fragment layout (hopper.cuh), so the helpers below work per warp on
+// [16][8 N] fragments.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int RWARPS = 4;
-constexpr int RTHREADS = RWARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// Work tiles walk groups of heads whose K / V (K2: also Q / dO) fit in L2
+// together: a third of the H100's 50 MB.
+constexpr long long L2_GROUP_BYTES = 16ll << 20;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid (0 source
-// bytes: `src` is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// load_tile by cp.async, for the RTHREADS of a register-path block.
-template <int R, int D, int LD>
-__device__ __forceinline__ void load_tile_async(bf16* sm, const bf16* g, long long ss,
-                                                int row0, int s) {
-  constexpr int CPR = D / 8;
-  for (int i = threadIdx.x; i < R * CPR; i += RTHREADS) {
-    const int r = i / CPR;
-    const int c = (i - r * CPR) * 8;
-    const bool ok = row0 + r < s;
-    cp_async16(sm + r * LD + c, g + (long long)(ok ? row0 + r : 0) * ss + c, ok);
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Whether no pair of the tile is masked (the per-element checks can go).
@@ -360,51 +329,6 @@ __device__ __forceinline__ bool tile_full(int q0, int kv0, int bq, int bkv,
   if (p.causal && kv0 + bkv - 1 > q0) return false;
   if (p.window > 0 && q0 + bq - 1 - kv0 >= p.window) return false;
   return true;
-}
-
-// acc[NJ][4] = A (the warp's 16 rows, [16][K] at A, pitch lda) * B^T, B a
-// [8 NJ][K] tile (pitch ldb): NJ score tiles of 16 x 8 per warp.
-template <int NJ, int K>
-__device__ __forceinline__ void warp_gemm_nt(float (&acc)[NJ][4], const bf16* A, int lda,
-                                             const bf16* B, int ldb) {
-  static_assert(NJ % 2 == 0 && K % 16 == 0, "tile");
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, A + (lane & 15) * lda + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, B + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk +
-                         ((lane >> 3) & 1) * 8);
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma_bf16(acc[j], a, b0);
-      mma_bf16(acc[j + 1], a, b1);
-    }
-  }
-}
-
-// acc[NN][4] += P * B: P the warp's [16][16 KT] operand in A fragments, B a
-// [16 KT][8 NN] tile stored row-major (pitch ldb), read transposed.
-template <int NN, int KT>
-__device__ __forceinline__ void warp_gemm_pv(float (&acc)[NN][4], const uint32_t (&pa)[KT][4],
-                                             const bf16* B, int ldb) {
-  static_assert(NN % 2 == 0, "tile");
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int t = 0; t < KT; ++t) {
-#pragma unroll
-    for (int n = 0; n < NN; n += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, B + (16 * t + (lane & 15)) * ldb + 8 * n + (lane >> 4) * 8);
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma_bf16(acc[n], pa[t], b0);
-      mma_bf16(acc[n + 1], pa[t], b1);
-    }
-  }
 }
 
 // Score fragments (C layout: rows g / g + 8, columns 2c, 2c + 1 of each

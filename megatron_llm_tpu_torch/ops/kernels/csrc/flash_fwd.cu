@@ -137,7 +137,7 @@ cudaError_t launch_fwd_hopper(const Params& p, const long long* geo, int* tile_c
 // element strides, 9 values.  path: 0 = the shared-memory kernel (strides),
 // 1 = the Hopper kernel (bf16, head_dim 64 / 128; `geo` holds q's, k's and
 // v's TMA geometry, 21 values, and `tile_counter` points at one int of
-// device memory), as ops/kernels/__init__.py's flash_fwd_path chose it.
+// device memory), as ops/kernels/__init__.py's flash_path chose it.
 // Returns a cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* seg_q, const void* seg_kv, void* out,

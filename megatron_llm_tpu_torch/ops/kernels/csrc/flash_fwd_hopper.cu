@@ -1,7 +1,7 @@
 // Flash-attention forward (K1) for Hopper: bf16 q / k / v at head_dim 64
 // and 128, the training path's shapes.  fp32 and head_dim 256 take the
 // shared-memory kernel in flash_fwd.cu; the path is chosen once, in Python
-// (ops/kernels/__init__.py: flash_fwd_path).
+// (ops/kernels/__init__.py: flash_path).
 //
 // Replaces the Pallas TPU kernel megatron_llm_tpu/ops/pallas/flash_attention.py
 // (_fwd_kernel, launched by _fwd) and computes what flash_fwd.cu computes:
@@ -65,10 +65,6 @@ struct HopperParams {
   int heads_group;   // heads whose tiles run side by side (decode_tile)
   int* tile_counter;  // work tiles handed out past the first round (zeroed)
 };
-
-// Work tiles walk groups of heads whose K / V fit in L2 together (a third
-// of the H100's 50 MB).
-constexpr long long L2_GROUP_BYTES = 16ll << 20;
 
 struct Tile {
   int bi, h, qt, lo, hi;  // batch, head, q tile, kv tiles [lo, hi)
@@ -203,12 +199,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 8][4], const uint32_t (&
       hopper::wgmma_rs_m64n64_tb(o, pa[t], db);
   }
   hopper::wgmma_commit();
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Set the raw scores of pairs the masks rule out to -inf: the rule of

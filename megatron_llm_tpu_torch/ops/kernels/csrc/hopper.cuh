@@ -2,8 +2,8 @@
 // TMA tensor maps (encoded on the host) and loads, mbarrier rings, named
 // barriers, register reallocation (setmaxnreg), wgmma shared-memory
 // descriptors, the wgmma products the flash kernels use, and the fences
-// around them.  Used by flash_fwd_hopper.cu (K1); the flash backward
-// kernels (K2 / K3) are meant to build on the same pieces.
+// around them.  Used by flash_fwd_hopper.cu (K1) and flash_bwd_hopper.cu
+// (K2 / K3).
 //
 // Shared-memory tiles are [rows][64] bf16 sub-tiles: 128 bytes a row, laid
 // down by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B (each 16-byte chunk of
@@ -15,11 +15,12 @@
 //   contiguous): 8-row groups 1024 bytes apart (SBO); a k16 step moves the
 //   start address 32 bytes inside the 128-byte row, and the fifth step
 //   starts on the next sub-tile.
-// * MN-major operand (V in O += P V: the output dimension d is
-//   contiguous, read with wgmma's transpose bit): 8-row groups of the
-//   reduced dimension (kv) 1024 bytes apart (SBO), the next 64 output
-//   columns one sub-tile further (LBO); a k16 step moves 16 rows, 2048
-//   bytes.
+// * MN-major operand (V in O += P V, K in dQ += dS K, dO and Q in the
+//   backward's dV / dK products: the output dimension d is contiguous,
+//   read with wgmma's transpose bit): 8-row groups of the reduced
+//   dimension 1024 bytes apart (SBO), the next 64 output columns one
+//   sub-tile further (LBO: the sub-tile's rows x 128 bytes); a k16 step
+//   moves 16 rows, 2048 bytes.
 //
 // The wgmma accumulator of m64nN puts, in each warp w of the warpgroup,
 // rows 16 w + lane / 4 and + 8, columns 8 j + 2 (lane % 4) + {0, 1} in
@@ -232,6 +233,27 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[16][4], uint64_t des
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The same at n64 (a 64-row B tile).
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[8][4], uint64_t desc_a,
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

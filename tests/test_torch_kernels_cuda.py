@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: paged attention (K4 ragged, K5 decode, K6 prefill; K5 also bitwise
-against K4 on the same rows), flash attention (K1-K3, and K1's Hopper
-kernel at its tile edges) and fused RMSNorm (K7 forward, K8 backward).
+against K4 on the same rows), flash attention (K1-K3, and the Hopper
+kernels of K1 and of K2 / K3 at their tile edges, K2 / K3 also bitwise
+across runs) and fused RMSNorm (K7 forward, K8 backward).
 
 The kernels build and run only on an NVIDIA GPU with ``nvcc`` (there is
 no interpret mode), so every test here is marked ``cuda`` and skips
@@ -410,12 +411,158 @@ def test_flash_fwd_launches_the_path_the_rule_picks(dtype, d):
     assert pt_kernels.launch_counts()["flash_fwd_kernel"] == 1
     want = "hopper" if dtype == torch.bfloat16 and d in (64, 128) else "smem"
     assert pt_kernels.flash_fwd_kernel.last_path == want
-    assert pt_kernels.flash_fwd_path(dtype, d) == want
+    assert pt_kernels.flash_path(dtype, d) == want
     r_out, r_lse = pt_flash.flash_fwd_plain(q, k, v, scale=1.0 / d ** 0.5)
     fwd_tol, _ = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), r_out.float(), atol=fwd_tol,
                                rtol=fwd_tol)
     torch.testing.assert_close(lse, r_lse, atol=1e-5, rtol=0.0)
+
+
+# K2 / K3's Hopper kernels (csrc/flash_bwd_hopper.cu: bf16 at head_dim 64 /
+# 128) over the same matrix as K1's: seq 1-1000 around their 128-row
+# stationary and 64-row walked tiles, GQA 1 / 4 / 8, d 64 / 128, every mask,
+# bf16 and fp32 outputs, contiguous and fused-qkv inputs.  Both versions get
+# the plain forward's lse and delta, so a forward difference does not reach
+# the check.  Bars as chip_smoke.py's kernels phase holds the bf16 backward:
+# each gradient within 1e-2 norm-relative error of the fp32 plain version
+# and atol = rtol = 2e-2 elementwise (P and dS rounded to bf16 before their
+# products, bf16 outputs).  The norm-relative bar has a floor of 1e-4 RMS
+# (eighty times under bf16's step at 1): at seq 1 under the causal mask a
+# row's one probability is 1, so dp = delta, ds = 0 in exact arithmetic, and
+# both versions return dq and dk of rounding noise (~1e-7).
+
+
+def _bwd_hopper_case(s, g, d, mask, fused, seed):
+    spec = HOPPER_MASKS[mask]
+    kw = dict(scale=1.0 / d ** 0.5, causal=spec["causal"],
+              sliding_window=spec["window"])
+    q, k, v, seg = _hopper_inputs(s, g, d, fused, seed)
+    seg = seg if spec["segments"] else None
+    rng = np.random.default_rng(seed + 1)
+    do = torch.tensor(rng.normal(size=tuple(q.shape)), dtype=torch.float32,
+                      device=q.device).to(torch.bfloat16)
+    out, lse = pt_flash.flash_fwd_plain(q, k, v, seg, seg, **kw)
+    delta = pt_flash.flash_delta(out, do)
+    return (q, k, v, do, lse, delta, seg), kw
+
+
+def _bwd_hopper_run(args, kw, out_dtype=None):
+    q, k, v, do, lse, delta, seg = args
+    dq = pt_kernels.flash_bwd_dq_kernel(q, k, v, do, lse, delta, seg,
+                                        out_dtype=out_dtype, **kw)
+    dk, dv = pt_kernels.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, seg,
+                                             out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("mask", list(HOPPER_MASKS))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("s", HOPPER_SEQS)
+def test_flash_bwd_hopper_matches_plain(s, g, d, mask):
+    for fused in (False, True):
+        args, kw = _bwd_hopper_case(s, g, d, mask, fused, seed=s + 10 * g + d)
+        q, k, v, do, lse, delta, seg = args
+        for out_dtype in (None, torch.float32):
+            pt_kernels.reset_launch_counts()
+            got = _bwd_hopper_run(args, kw, out_dtype)
+            counts = pt_kernels.launch_counts()
+            assert counts["flash_bwd_dq_kernel"] == 1
+            assert counts["flash_bwd_dkv_kernel"] == 1
+            assert pt_kernels.flash_bwd_dq_kernel.last_path == "hopper"
+            assert pt_kernels.flash_bwd_dkv_kernel.last_path == "hopper"
+            ref_kw = dict(kw, out_dtype=out_dtype)
+            refs = (pt_flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, seg,
+                                                seg, **ref_kw),
+                    *pt_flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  seg, seg, **ref_kw))
+            for name, ker, ref in zip(("dq", "dk", "dv"), got, refs):
+                where = f"{name} fused={fused} out={ker.dtype}"
+                assert ker.dtype == (out_dtype or torch.bfloat16), where
+                assert ker.shape == ref.shape, where
+                assert torch.isfinite(ker).all(), where
+                err = ker.float() - ref.float()
+                floor = 1e-4 * ref.numel() ** 0.5
+                assert float(err.norm()) <= 1e-2 * float(ref.float().norm()) \
+                    + floor, where
+                torch.testing.assert_close(ker.float(), ref.float(),
+                                           atol=2e-2, rtol=2e-2, msg=where)
+
+
+@pytest.mark.parametrize("mask", ["causal", "segments"])
+def test_flash_bwd_hopper_is_deterministic(mask):
+    """No atomics: two runs on the same inputs give the same bits."""
+    args, kw = _bwd_hopper_case(1000, 4, 128, mask, True, seed=11)
+    first = _bwd_hopper_run(args, kw)
+    second = _bwd_hopper_run(args, kw)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_bwd_hopper_reads_do_as_a_transposed_view():
+    """``do`` as the transposed view of a packed ``[b, n, s, d]`` gradient
+    (what autograd hands the backward when the caller moved heads first):
+    TMA reads it in place, and the gradients are the same bits as from a
+    packed copy."""
+    args, kw = _bwd_hopper_case(300, 4, 128, "causal", False, seed=5)
+    q, k, v, do, lse, delta, seg = args
+    view = do.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous() and pt_kernels.flash_rows_aligned(view)
+    packed = _bwd_hopper_run(args, kw)
+    viewed = _bwd_hopper_run((q, k, v, view, lse, delta, seg), kw)
+    for name, a, b in zip(("dq", "dk", "dv"), packed, viewed):
+        assert torch.equal(a, b), name
+
+
+def test_flash_bwd_hopper_reads_a_broadcast_do():
+    """``do`` broadcast over batch and sequence (stride 0 there, rows still
+    16-byte aligned): TMA reads it in place, and the gradients are the same
+    bits as from a packed copy."""
+    args, kw = _bwd_hopper_case(300, 2, 128, "causal", False, seed=6)
+    q, k, v, do, lse, delta, seg = args
+    bcast = do[:1, :1].expand(do.shape)
+    assert bcast.stride()[:2] == (0, 0) and pt_kernels.flash_rows_aligned(bcast)
+    packed = _bwd_hopper_run((q, k, v, bcast.contiguous(), lse, delta, seg), kw)
+    viewed = _bwd_hopper_run((q, k, v, bcast, lse, delta, seg), kw)
+    for name, a, b in zip(("dq", "dk", "dv"), packed, viewed):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128)])
+def test_flash_bwd_launches_the_path_the_rule_picks(dtype, d):
+    """bf16 at head_dim 64 / 128 runs the Hopper kernels, everything else the
+    shared-memory kernels; each counter moves once either way."""
+    q, k, v, _ = _hopper_inputs(200, 4, d, False, seed=7)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    do = torch.randn(q.shape, device=q.device, dtype=torch.float32,
+                     generator=torch.Generator(device=q.device).manual_seed(3)
+                     ).to(dtype)
+    kw = dict(scale=1.0 / d ** 0.5)
+    out, lse = pt_flash.flash_fwd_plain(q, k, v, **kw)
+    delta = pt_flash.flash_delta(out, do)
+    pt_kernels.reset_launch_counts()
+    pt_kernels.flash_bwd_dq_kernel.last_path = None
+    pt_kernels.flash_bwd_dkv_kernel.last_path = None
+    got = _bwd_hopper_run((q, k, v, do, lse, delta, None), kw)
+    counts = pt_kernels.launch_counts()
+    assert counts["flash_bwd_dq_kernel"] == counts["flash_bwd_dkv_kernel"] == 1
+    want = "hopper" if dtype == torch.bfloat16 and d in (64, 128) else "smem"
+    assert pt_kernels.flash_path(dtype, d) == want
+    assert pt_kernels.flash_bwd_dq_kernel.last_path == want
+    assert pt_kernels.flash_bwd_dkv_kernel.last_path == want
+    refs = (pt_flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+            *pt_flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    _, grad_tol = FLASH_TOL[dtype]
+    for ker, ref in zip(got, refs):
+        torch.testing.assert_close(ker.float(), ref.float(), atol=grad_tol,
+                                   rtol=grad_tol)
+
 
 
 # ---------------------------------------------------------------------------
