@@ -17,8 +17,17 @@ Phases:
    serving path's shapes (Llama-2-7B attention: 32 heads, head_dim 128,
    page 16, contexts up to 2048, live and dead rows), a GQA 32/8 shape, a
    sliding-window case and the TinyLlama draft's GQA 32/4 at head_dim 64,
-   in fp32 (atol 1e-5) and bf16 (atol = rtol = 1e-2); dead rows must be
-   exact zeros, and K5 must equal K4 bitwise on the same rows.  Flash
+   in fp32 (atol 1e-5) and bf16 (atol = rtol = 1e-2), and a speculative
+   verify tick (8 slots x 5 rows on their tables, the chunk, dead rows);
+   dead rows must be exact zeros, K5 must equal K4 bitwise on the same
+   rows, K4 / K5 must have run the routine ``paged_path`` names (bf16: the
+   tensor-core tile routine, ``csrc/paged_tile.cuh``; fp32: attend_row),
+   and each live row's K4 output must be bitwise the same run alone and in
+   a permuted tick.  K4 is also timed on the mixed tick's 8 decode rows
+   alone, on a decode-only tick (8 x 2048), on the verify tick and on the
+   serve burst's two tick kinds (its 8 prompts half-way through their new
+   tokens, alone and beside a 64-row chunk), each beside its bound (each
+   page once).  Flash
    attention (K1 forward, K2 dq, K3 dk/dv) at the
    training shape (b 1, seq 4096, 32 heads, head_dim 128, causal), GQA
    32/8, a 100-token window, two packed documents, bidirectional,
@@ -40,9 +49,12 @@ Phases:
    (fp32 y / dx atol 1e-5, dw norm-relative 1e-5; bf16 one step of the
    type); K8's dw and dx bitwise the same on a second run; K7 / K8 with an
    eps of 0.2 (r about 10% off) must fail the bf16 check.  Times every
-   kernel and its plain version with CUDA events, and as the yardstick
-   PyTorch's ``scaled_dot_product_attention`` forward and backward for
-   K1-K3 and ``torch.nn.functional.rms_norm`` for K7 / K8, and each
+   kernel and its plain version with CUDA events, its host time a launch
+   (``host_us``: perf counter over back-to-back calls, no sync inside), and
+   as the yardstick PyTorch's ``scaled_dot_product_attention`` forward and
+   backward for K1-K3 and ``torch.nn.functional.rms_norm`` for K7 / K8 (K7
+   also at the kernel-check tool's serve-tick shape ``[80, 4096]``), and
+   each
    kernel's device time (``torch.profiler``, ``device_ms`` in the
    ``kernels`` line): where a wrapper takes longer on the host than its
    kernel on the card, back to back the event time is the host's.  K1-K3
@@ -61,7 +73,10 @@ Phases:
    from a seed, NullTokenizer) and send concurrent ``PUT /api`` requests:
    greedy, one sampled with a seed, one with ``logprobs``.  Every answer
    must be 200 with the right lengths, and both paged kernels' launch
-   counters (set to 0 just before) must be > 0 after.  With ``--profile`` a
+   counters (set to 0 just before) must be > 0 after, K4 on the tile
+   routine; the K4 launches are split into ticks that carried prefill rows
+   and decode-only ticks (counted on the host from the engine's tick plan)
+   and priced apart at the end.  With ``--profile`` a
    second burst of fresh greedy prompts runs under ``torch.profiler``
    and the device's busy share, the top device kernels and the top host
    operators are printed.
@@ -79,10 +94,12 @@ Phases:
    phase's burst goes through the port's server at ``spec_k=4``
    (adaptive), then through a ``spec_k=0`` engine on the same target.
    Every answer 200 with its lengths, K5, K4 and K6 launched (counters set
-   to 0 just before), acceptance >= 0.9; prints ticks, tokens a tick, wall
+   to 0 just before), K4 on the tile routine, acceptance >= 0.9; prints
+   ticks, tokens a tick, wall
    time and decode tokens/s of both.  (c) a TinyLlama-shaped draft (22
    layers, hidden 2048, 32/4 heads: K5 at g 8, d 64) on the same target,
-   one greedy burst: every answer 200 and K5 launched.
+   one greedy burst: every answer 200, K5 launched, K4 on the tile
+   routine.
 7. ``train``: the port's training entry point
    (``megatron_llm_tpu_torch.finetune.main``) on Llama-2-7B at full width
    cut to 8 of its 32 layers, seq 4096, micro batch 1,
@@ -143,26 +160,30 @@ def card_line() -> str:
 
 
 class RaggedCase:
-    """A ragged tick's attention inputs: ``n_decode`` decode rows with
-    their own tables and contexts, one prefill chunk of ``chunk`` rows
-    sharing one table, and ``n_dead`` dead rows (null table, horizon 0)."""
+    """A ragged tick's attention inputs: one slot a context, each with
+    ``verify_rows`` rows on its own table (a decode row at position ctx - 1,
+    or a speculative verify's K + 1 rows at ctx - K - 1 .. ctx - 1), one
+    prefill chunk of ``chunk`` rows sharing one table, and ``n_dead`` dead
+    rows (null table, horizon 0)."""
 
     def __init__(self, torch, gen, dev, dtype, *, n, nkv, d=128, page=16,
-                 contexts, chunk_start, chunk=64, n_dead=8, window=None):
+                 contexts, chunk_start, chunk=64, n_dead=8, window=None,
+                 verify_rows=1):
         self.n, self.nkv, self.d, self.page = n, nkv, d, page
         self.window = window
         W = 2048 // page
         tables = [[0] * W]
         next_page = 1
         rows_tbl, rows_pos, rows_hor = [], [], []
-        for ctx in contexts:          # decode rows: position ctx - 1
+        for ctx in contexts:          # a slot's rows: the last at ctx - 1
             npg = -(-ctx // page)
             tables.append(list(range(next_page, next_page + npg))
                           + [0] * (W - npg))
             next_page += npg
-            rows_tbl.append(len(tables) - 1)
-            rows_pos.append(ctx - 1)
-            rows_hor.append(((ctx - 1) // 64 + 1) * 64)
+            for p in range(ctx - verify_rows, ctx):
+                rows_tbl.append(len(tables) - 1)
+                rows_pos.append(p)
+                rows_hor.append((p // 64 + 1) * 64)
         end = chunk_start + chunk      # prefill chunk rows
         npg = -(-end // page)
         tables.append(list(range(next_page, next_page + npg))
@@ -190,9 +211,9 @@ class RaggedCase:
                              dtype=torch.float32).to(dtype)
         self.q = torch.randn((R, 1, n, d), generator=gen, device=dev,
                              dtype=torch.float32).to(dtype)
+        ns = len(contexts) * verify_rows    # the slots' rows
         # the chunk as a prefill call: [1, chunk, n, d] at chunk_start
-        self.pre_q = self.q[len(contexts):len(contexts) + chunk].reshape(
-            1, chunk, n, d).contiguous()
+        self.pre_q = self.q[ns:ns + chunk].reshape(1, chunk, n, d).contiguous()
         self.pre_bt = self.tables[-1:, :npg].contiguous()
         self.pre_start = torch.tensor([chunk_start], **i32)
         self.scale = 1.0 / d ** 0.5
@@ -209,12 +230,13 @@ class RaggedCase:
         self.prefill_bytes = (2 * self.pre_q.numel() * esz
                               + 2 * end * nkv * d * esz
                               + 4 * (self.pre_bt.numel() + 1))
-        self.prefill_flops = 4.0 * n * d * sum(ctx_per_row[len(contexts):])
-        # the decode rows as one K5 call: each row through its own table
+        self.prefill_flops = 4.0 * n * d * sum(ctx_per_row[ns:])
+        # each slot's last row as one K5 call: each row through its own table
         nd = len(contexts)
-        self.dec_q = self.q[:nd].contiguous()
+        last = slice(verify_rows - 1, ns, verify_rows)
+        self.dec_q = self.q[last].contiguous()
         self.dec_bt = self.tables[1:1 + nd].contiguous()
-        self.dec_pos = self.pos[:nd].contiguous()
+        self.dec_pos = self.pos[last].contiguous()
         # the same rows for K4: table index = the row, a horizon on the
         # 64-token grid above the position
         self.dec_idx = torch.arange(nd, **i32)
@@ -222,7 +244,7 @@ class RaggedCase:
         self.decode_bytes = (2 * self.dec_q.numel() * esz
                              + 2 * sum(contexts) * nkv * d * esz
                              + 4 * (self.dec_bt.numel() + nd))
-        self.decode_flops = 4.0 * n * d * sum(ctx_per_row[:nd])
+        self.decode_flops = 4.0 * n * d * sum(ctx_per_row[last])
 
     def ragged(self, use_kernel):
         from megatron_llm_tpu_torch.ops.paged_attention import (
@@ -232,6 +254,17 @@ class RaggedCase:
             self.q, self.k, self.v, self.tables, self.idx, self.pos, self.hor,
             scale=self.scale, sliding_window=self.window,
             use_kernel=use_kernel)
+
+    def ragged_rows(self, rows):
+        """K4 on the tick's rows ``rows`` (an index tensor), in that order."""
+        from megatron_llm_tpu_torch.ops.paged_attention import (
+            paged_attention_ragged)
+
+        return paged_attention_ragged(
+            self.q[rows].contiguous(), self.k, self.v, self.tables,
+            self.idx[rows].contiguous(), self.pos[rows].contiguous(),
+            self.hor[rows].contiguous(), scale=self.scale,
+            sliding_window=self.window)
 
     def decode(self, use_kernel):
         from megatron_llm_tpu_torch.ops.paged_attention import (
@@ -262,6 +295,29 @@ class RaggedCase:
             use_kernel=use_kernel)
 
 
+def _rows_stand_alone(torch, case, seed):
+    """K4's per-row contract: every live row's output in the full tick is
+    bitwise the same as the row run alone and as the row in a permuted
+    tick (which regroups the rows into other tiles).  Returns the rows that
+    differ, as ``["permuted"]`` and row indices."""
+    full = case.ragged(True)
+    R = case.q.shape[0]
+    perm = torch.randperm(R, generator=torch.Generator().manual_seed(seed))
+    perm = perm.to(case.q.device)
+    bad = []
+    if not torch.equal(case.ragged_rows(perm)[torch.argsort(perm)], full):
+        bad.append("permuted")
+    for r in range(R - case.n_dead):
+        one = torch.tensor([r], device=case.q.device)
+        if not torch.equal(case.ragged_rows(one)[0], full[r]):
+            bad.append(r)
+    return bad
+
+
+# host µs a launch (perf counter, no sync inside): calls a reading takes
+HOST_CALLS = 200
+
+
 def phase_kernels(dev, report, args):
     import torch
 
@@ -270,6 +326,7 @@ def phase_kernels(dev, report, args):
         bound,
         cuda_ms,
         device_ms,
+        host_us,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -285,8 +342,14 @@ def phase_kernels(dev, report, args):
         # the TinyLlama-shaped draft's attention (spec phase, part c)
         "gqa-32/4-d64": dict(n=32, nkv=4, d=64, contexts=contexts,
                              chunk_start=512),
+        # a speculative verify tick: each slot's K + 1 = 5 rows on its table
+        "verify-llama2-7b": dict(n=32, nkv=32, contexts=contexts,
+                                 chunk_start=512, verify_rows=SPEC_K + 1),
     }
     tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+    # K4 / K5's device routine by type (ops/kernels/__init__.py:paged_path;
+    # every case here is at head_dim 64 or 128)
+    want_path = {torch.float32: "rows", torch.bfloat16: "tile"}
     kernels.reset_launch_counts()
     worst = {"paged_ragged": 0.0, "paged_decode": 0.0, "paged_prefill": 0.0}
     for name, spec in cases.items():
@@ -300,7 +363,7 @@ def phase_kernels(dev, report, args):
                     f"paged_decode differs from paged_ragged on the same rows "
                     f"({name} {dtype}): max abs "
                     f"{float((dec.float() - dec_k4.float()).abs().max())}")
-            log(f"  paged_decode  {name:10s} {str(dtype):14s} bitwise equal "
+            log(f"  paged_decode  {name:16s} {str(dtype):14s} bitwise equal "
                 f"to paged_ragged on its {dec.shape[0]} rows")
             for kname, fn in (("paged_ragged", case.ragged),
                               ("paged_decode", case.decode),
@@ -316,7 +379,7 @@ def phase_kernels(dev, report, args):
                 if kname == "paged_ragged":
                     dead = ker[-case.n_dead:]
                     ok = ok and bool((dead == 0).all())
-                log(f"  {kname:13s} {name:10s} {str(dtype):14s} "
+                log(f"  {kname:13s} {name:16s} {str(dtype):14s} "
                     f"max_abs_err={max_err:.3e} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(
@@ -324,6 +387,20 @@ def phase_kernels(dev, report, args):
                         f"{name} {dtype}: max abs err {max_err}")
                 if name == "llama2-7b" and dtype == torch.bfloat16:
                     worst[kname] = max_err
+            paths = (kernels.paged_ragged_kernel.last_path,
+                     kernels.paged_decode_kernel.last_path)
+            if paths != (want_path[dtype],) * 2:
+                raise AssertionError(f"K4 / K5 ran the {paths} routines on "
+                                     f"{name} {dtype}, not "
+                                     f"{want_path[dtype]}")
+            bad = _rows_stand_alone(torch, case, seed=len(name))
+            log(f"  paged_ragged  {name:16s} {str(dtype):14s} "
+                f"{case.q.shape[0] - case.n_dead} live rows bitwise the same "
+                f"alone and in a permuted tick: {not bad}")
+            if bad:
+                raise AssertionError(
+                    f"paged_ragged rows {bad[:8]} of {name} {dtype} differ "
+                    f"alone or in a permuted tick from the full tick")
     # times at the serving path's shape, in its working type (bf16)
     case = RaggedCase(torch, gen, dev, torch.bfloat16, **cases["llama2-7b"])
     rows = {}
@@ -344,21 +421,67 @@ def phase_kernels(dev, report, args):
                            plain_ms=min(ms_plain_1, ms_plain_2),
                            device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by,
                            bytes=nbytes, flops=flops,
+                           host_us=host_us(lambda: fn(True), n=HOST_CALLS),
                            max_abs_err=worst[kname])
         log(f"  {kname}: kernel {ms_k_1:.4f}/{ms_k_2:.4f} ms (device "
-            f"{dev_ms:.4f} ms), plain {ms_plain_1:.4f}/{ms_plain_2:.4f} ms, "
+            f"{dev_ms:.4f} ms, host {rows[kname]['host_us']:.1f} us a "
+            f"launch), plain {ms_plain_1:.4f}/{ms_plain_2:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
+    rows["paged_ragged"]["path"] = kernels.paged_ragged_kernel.last_path
+    rows["paged_decode"]["path"] = kernels.paged_decode_kernel.last_path
     report["kernels"] = rows
+    k4 = rows["paged_ragged"]
+
+    def k4_tick(key, tick, what, work):
+        """K4 on another tick of bf16 rows (``work``: its bytes and flops):
+        events (twice, the better), device time and bound, into the K4 row
+        as ``<key>_*``."""
+        ms = min(cuda_ms(tick) for _ in range(2))
+        b_ms, b_by = bound(*work, "bfloat16")
+        k4.update({f"{key}_ms": ms, f"{key}_device_ms": device_ms(tick),
+                   f"{key}_bound_ms": b_ms})
+        print(f"kernels: paged_ragged on {what}: {ms:.4f} ms by events "
+              f"(device {k4[key + '_device_ms']:.4f} ms), bound {b_ms:.4f} "
+              f"ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound",
+              flush=True)
+
+    print(f"kernels: paged_ragged ({k4['path']} routine) on the mixed tick "
+          f"(8 decode rows, a 64-row chunk, 8 dead rows): {k4['ms']:.4f} ms "
+          f"by events (device {k4['device_ms']:.4f} ms), bound "
+          f"{k4['bound_ms']:.4f} ms, {100 * k4['bound_ms'] / k4['ms']:.1f}% "
+          f"of the bound", flush=True)
+    # the same 8 decode rows alone (decode-only ticks are priced with it)
+    k4_tick("decode_rows", case.decode_as_ragged,
+            "the mixed tick's 8 decode rows alone",
+            work=(case.decode_bytes, case.decode_flops))
     # a decode-only tick at full context: 8 rows x 2048 tokens
-    case = RaggedCase(torch, gen, dev, torch.bfloat16, n=32, nkv=32,
+    full = RaggedCase(torch, gen, dev, torch.bfloat16, n=32, nkv=32,
                       contexts=[2048] * 8, chunk_start=0, chunk=0, n_dead=0)
-    ms = min(cuda_ms(lambda: case.ragged(True)) for _ in range(2))
-    b_ms, b_by = bound(case.ragged_bytes, case.ragged_flops, "bfloat16")
-    report["decode_only"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"kernels: paged_ragged decode-only 8 rows x 2048 tokens: "
-          f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-          f"{100 * b_ms / ms:.1f}% of the bound", flush=True)
+    k4_tick("decode_only", lambda: full.ragged(True),
+            "a decode-only tick of 8 rows x 2048 tokens",
+            work=(full.ragged_bytes, full.ragged_flops))
+    # a speculative verify tick: 8 slots x 5 rows, the chunk, dead rows
+    verify = RaggedCase(torch, gen, dev, torch.bfloat16,
+                        **cases["verify-llama2-7b"])
+    k4_tick("verify", lambda: verify.ragged(True),
+            f"a verify tick ({len(contexts)} slots x {SPEC_K + 1} rows on "
+            f"their tables, the 64-row chunk, 8 dead rows; each page once "
+            f"in the bound)", work=(verify.ragged_bytes, verify.ragged_flops))
+    # the serve burst's two tick kinds (the serve phase prices its K4
+    # launches with them): its 8 prompts half-way through their new tokens,
+    # alone and beside a 64-row prefill chunk
+    serve_ctx = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
+    for key, chunk in (("serve_decode", 0), ("serve_mixed", 64)):
+        tick = RaggedCase(torch, gen, dev, torch.bfloat16, n=32, nkv=32,
+                          contexts=serve_ctx, chunk_start=256 if chunk else 0,
+                          chunk=chunk,
+                          n_dead=8 if chunk else 0)
+        k4_tick(key, lambda: tick.ragged(True),
+                f"the serve burst's {len(serve_ctx)} decode rows"
+                + (" and a 64-row chunk at 256" if chunk else ""),
+                work=(tick.ragged_bytes, tick.ragged_flops))
+    del full, verify, tick
     flash_kernels(dev, report)
     rmsnorm_kernels(dev, report)
 
@@ -560,6 +683,7 @@ def flash_kernels(dev, report):
         bound,
         cuda_ms,
         device_ms,
+        host_us,
     )
 
     gen = torch.Generator(device=dev)
@@ -626,6 +750,7 @@ def flash_kernels(dev, report):
             ms=min(ms_k_1, ms_k_2), plain_ms=min(ms_plain_1, ms_plain_2),
             device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
             flops=flops, max_abs_err=worst[kname],
+            host_us=host_us(lambda: case.run(kname, True), n=HOST_CALLS),
             tflop_s=flops / min(ms_k_1, ms_k_2) / 1e9,
             library_ms=sdpa_fwd if kname == "flash_fwd" else sdpa_bwd)
         # which kernel the training shape ran
@@ -763,12 +888,28 @@ def rmsnorm_kernels(dev, report):
         r = t[key]
         rows[kname] = dict(max_abs_err=worst[kname], **r)
         log(f"  {kname}: kernel {r['ms']:.4f} ms (device "
-            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"{r['device_ms']:.4f} ms, host {r['host_us']:.1f} us a launch), "
+            f"plain {r['plain_ms']:.4f} ms, "
             f"F.rms_norm {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.1f} MB)")
+    # K7 again at the kernel-check tool's serve-tick shape, where the host's
+    # time a launch decides the event time
+    rows_s, h_s = kc.MODEL_SHAPES["serve tick"]
+    t7 = kc.rmsnorm_times(dev, rows_s, h_s, torch.bfloat16)["K7"]
+    rows["rms_norm_fwd"].update({
+        "serve_tick_" + key: t7[key] for key in (
+            "ms", "device_ms", "host_us", "library_ms", "library_host_us",
+            "bound_ms")})
+    print(f"kernels: rms_norm_fwd at the serve tick's [{rows_s}, {h_s}] bf16: "
+          f"K7 {t7['ms']:.4f} ms by events (device {t7['device_ms']:.4f} ms, "
+          f"host {t7['host_us']:.2f} us a launch), F.rms_norm "
+          f"{t7['library_ms']:.4f} ms (host {t7['library_host_us']:.2f} us)",
+          flush=True)
     print(f"kernels: rms_norm at [4096, 4096] bf16, back to back: K7 "
-          f"{rows['rms_norm_fwd']['ms']:.4f} ms, K8 "
+          f"{rows['rms_norm_fwd']['ms']:.4f} ms (host "
+          f"{rows['rms_norm_fwd']['host_us']:.2f} us a launch, F.rms_norm "
+          f"{rows['rms_norm_fwd']['library_host_us']:.2f} us), K8 "
           f"{rows['rms_norm_bwd']['ms']:.4f} ms (device "
           f"{rows['rms_norm_fwd']['device_ms']:.4f} / "
           f"{rows['rms_norm_bwd']['device_ms']:.4f} ms); bounds "
@@ -954,6 +1095,44 @@ def _print_profile(profile: dict, tick_s: float) -> None:
           f"profiler saw): {fmt(profile['top_host'])}", flush=True)
 
 
+def _tick_kinds(engine) -> dict:
+    """Split the engine's ticks, and the K4 launches they make, into ticks
+    that carried prefill rows and decode-only ticks, from the tick plan the
+    engine builds (``_plan_ragged_prefill``'s spans) and K4's host-side
+    launch counter: no device read.  Returns ``{"prefill": [ticks,
+    launches], "decode": [ticks, launches]}``, filled as the engine ticks."""
+    from megatron_llm_tpu_torch.ops import kernels
+
+    counts = {"prefill": [0, 0], "decode": [0, 0]}
+    kind = ["decode"]
+    plan, tick = engine._plan_ragged_prefill, engine._tick_fn
+
+    def planned():
+        out = plan()
+        kind[0] = "prefill" if out[0] else "decode"
+        return out
+
+    def ticked(*a, **kw):
+        n0 = kernels.paged_ragged_kernel.launches
+        out = tick(*a, **kw)
+        counts[kind[0]][0] += 1
+        counts[kind[0]][1] += kernels.paged_ragged_kernel.launches - n0
+        return out
+
+    engine._plan_ragged_prefill, engine._tick_fn = planned, ticked
+    return counts
+
+
+def _assert_k4_tile(where: str) -> None:
+    """The bf16 model at head_dim 128 runs K4 on the tensor-core routine."""
+    from megatron_llm_tpu_torch.ops import kernels
+
+    if kernels.paged_ragged_kernel.last_path != "tile":
+        raise AssertionError(f"K4 ran the "
+                             f"{kernels.paged_ragged_kernel.last_path} "
+                             f"routine on {where}, not the tile routine")
+
+
 def phase_serve(dev, report, args):
     import numpy as np
     import torch
@@ -983,10 +1162,12 @@ def phase_serve(dev, report, args):
     rng = np.random.default_rng(args.seed)
     prompts, bodies = serve_bodies(rng, m.vocab_size)
     profile = None
+    kinds = _tick_kinds(engine)
     try:
         kernels.reset_launch_counts()
         results, wall = _burst(port, bodies)
         launches = kernels.launch_counts()
+        kinds = {kind: list(c) for kind, c in kinds.items()}
         ttft = sorted(engine.recent_ttft_s)
         ticks = engine.ticks
         if args.profile:   # a second burst of fresh greedy prompts
@@ -1004,7 +1185,13 @@ def phase_serve(dev, report, args):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    _assert_k4_tile("the serve burst")
+    if kinds["prefill"][1] + kinds["decode"][1] != launches[
+            "paged_ragged_kernel"]:
+        raise AssertionError(f"K4 launches by tick kind {kinds} do not add "
+                             f"up to {launches['paged_ragged_kernel']}")
     report["serve_launches"] = launches
+    report["serve_tick_kinds"] = kinds
     report["serve"] = dict(
         requests=len(bodies), generated_tokens=generated, wall_s=wall,
         decode_tokens_per_s=generated / wall,
@@ -1017,6 +1204,10 @@ def phase_serve(dev, report, args):
           flush=True)
     print(f"serve: kernel launches on the main path {json.dumps(launches)}",
           flush=True)
+    print(f"serve: ticks that carried prefill rows {kinds['prefill'][0]} "
+          f"({kinds['prefill'][1]} K4 launches), decode-only ticks "
+          f"{kinds['decode'][0]} ({kinds['decode'][1]} K4 launches); K4 on "
+          f"the tile routine", flush=True)
     if profile is not None:
         report["serve_profile"] = profile
         _print_profile(profile, wall / ticks)
@@ -1360,6 +1551,7 @@ def phase_spec(dev, report, args):
                     "paged_prefill_kernel"):
         if spec_l[wrapper] <= 0:
             raise AssertionError(f"{wrapper} never launched on the spec path")
+    _assert_k4_tile("the bf16 spec burst")
     if not (stats["acceptance_rate"] or 0.0) >= SPEC_MIN_ACCEPT["bf16"]:
         raise AssertionError(f"identity-pair acceptance {stats}")
     out["serve"] = served
@@ -1387,6 +1579,7 @@ def phase_spec(dev, report, args):
           f"{launches['paged_decode_kernel']}", flush=True)
     if (g, d) != (8, 64) or launches["paged_decode_kernel"] <= 0:
         raise AssertionError(f"K5 at g {g}, d {d}: {launches}")
+    _assert_k4_tile("the TinyLlama-draft burst")
     out["tinyllama"] = dict(wall_s=wall, ticks=ticks, generated=generated,
                             spec_stats=stats, launches=launches)
     report["spec"] = out
@@ -1739,12 +1932,12 @@ KERNEL_META = {
         library_note="scaled_dot_product_attention backward (dq, dk and dv "
                      "together: the same time stands on K2 and K3)"),
     "paged_ragged": dict(
-        source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_ragged.cu",
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_tile.cuh",
         replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:215",
         wrapper="paged_ragged_kernel", launches_from="serve_launches",
         library_note="no single PyTorch call reads a paged KV pool"),
     "paged_decode": dict(
-        source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_decode.cu",
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_tile.cuh",
         replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:61",
         wrapper="paged_decode_kernel", launches_from="spec_launches",
         library_note="no single PyTorch call reads a paged KV pool"),
@@ -1765,6 +1958,31 @@ KERNEL_META = {
         library_note="torch.nn.functional.rms_norm backward (forward and "
                      "backward less forward)"),
 }
+
+
+# the extra timings a kernel row may carry (head_dim 64; K4's other ticks;
+# K7 at the serve tick's shape)
+ROW_EXTRAS = ("d64_", "decode_rows_", "decode_only_", "verify_",
+              "serve_decode_", "serve_mixed_", "serve_tick_")
+
+
+def print_k4_price(k4: dict, kinds: dict) -> None:
+    """K4's share of the serve burst, launches x (time - bound), with the
+    ticks that carried prefill rows and the decode-only ticks priced apart
+    (kernels phase, events): at the serve-shaped ticks, and at the mixed
+    tick and its 8 decode rows (contexts up to 2048)."""
+    for label, pre_key, dec_key in (("serve-shaped", "serve_mixed_",
+                                     "serve_decode_"),
+                                    ("2048-token", "", "decode_rows_")):
+        pre_ms, pre_b = k4[pre_key + "ms"], k4[pre_key + "bound_ms"]
+        dec_ms, dec_b = k4[dec_key + "ms"], k4[dec_key + "bound_ms"]
+        pre = kinds["prefill"][1] * (pre_ms - pre_b)
+        dec = kinds["decode"][1] * (dec_ms - dec_b)
+        print(f"K4 over the serve burst, {label} ticks: "
+              f"{kinds['prefill'][1]} launches on ticks with prefill rows x "
+              f"({pre_ms:.4f} - {pre_b:.4f}) ms + {kinds['decode'][1]} on "
+              f"decode-only ticks x ({dec_ms:.4f} - {dec_b:.4f}) ms = "
+              f"{pre:.1f} + {dec:.1f} = {pre + dec:.1f} ms", flush=True)
 
 
 def main(argv=None) -> int:
@@ -1838,6 +2056,9 @@ def main(argv=None) -> int:
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
+    if "kernels" in report and "serve_tick_kinds" in report:
+        print_k4_price(report["kernels"]["paged_ragged"],
+                       report["serve_tick_kinds"])
     if "kernels" in report:
         line = []
         for kname, meta in KERNEL_META.items():
@@ -1849,13 +2070,14 @@ def main(argv=None) -> int:
                     meta["wrapper"]),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "kernel_ms": row["ms"], "device_ms": row["device_ms"],
-                "plain_ms": row["plain_ms"],
+                "host_us": row["host_us"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms"),
                 "library_note": meta["library_note"],
                 "path": row.get("path", "single"),
                 **{k: row[k] for k in row
-                   if k == "tflop_s" or k.startswith("d64_")},
+                   if k in ("tflop_s", "library_host_us")
+                   or k.startswith(ROW_EXTRAS)},
             })
         print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

@@ -109,40 +109,50 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build(verbose=verbose)))
+            # every entry point ends with (device index, stream)
+            tail = [_c_int, _c_void]
+            # q, k_pool, v_pool, tables, table_index, positions, horizons,
+            # out; R, n, nkv, d, W, page, pages, scale, window, seg_stages,
+            # segs, slots; the plan, (m, l) and O; dtype, path
             lib.paged_ragged_launch.argtypes = (
-                [_c_void] * 8 + [_c_int] * 6
-                + [ctypes.c_float, _c_int, _c_int, _c_void])
+                [_c_void] * 8 + [_c_int] * 7 + [ctypes.c_float]
+                + [_c_int] * 4 + [_c_void] * 3 + [_c_int] * 2 + tail)
             lib.paged_ragged_launch.restype = _c_int
+            # q, k_pool, v_pool, block_tables, positions, out; b, n, nkv, d,
+            # W, page, pages, scale, window, seg_stages, segs, slots; the
+            # plan, (m, l) and O; dtype, path
             lib.paged_decode_launch.argtypes = (
-                [_c_void] * 6 + [_c_int] * 6
-                + [ctypes.c_float, _c_int, _c_int, _c_void])
+                [_c_void] * 6 + [_c_int] * 7 + [ctypes.c_float]
+                + [_c_int] * 4 + [_c_void] * 3 + [_c_int] * 2 + tail)
             lib.paged_decode_launch.restype = _c_int
+            # q, k_pool, v_pool, block_tables, start, out; b, s, n, nkv, d,
+            # kv_pages, page, scale, window, dtype
             lib.paged_prefill_launch.argtypes = (
                 [_c_void] * 6 + [_c_int] * 7
-                + [ctypes.c_float, _c_int, _c_int, _c_void])
+                + [ctypes.c_float, _c_int, _c_int] + tail)
             lib.paged_prefill_launch.restype = _c_int
             lib.paged_error_string.argtypes = [_c_int]
             lib.paged_error_string.restype = ctypes.c_char_p
             # tensor pointers, the host arrays of element strides and of
             # TMA geometry, the device tile counter, then b, sq, skv, n,
-            # nkv, d, scale, causal, window, dtype, out_f32, path, stream
+            # nkv, d, scale, causal, window, dtype, out_f32, path
             dims = [_c_int] * 6 + [ctypes.c_float] + [_c_int] * 5
             for name, n_ptrs in (("flash_fwd_launch", 7),
                                  ("flash_bwd_dq_launch", 9),
                                  ("flash_bwd_dkv_launch", 10)):
                 fn = getattr(lib, name)
-                fn.argtypes = [_c_void] * (n_ptrs + 3) + dims + [_c_void]
+                fn.argtypes = [_c_void] * (n_ptrs + 3) + dims + tail
                 fn.restype = _c_int
-            # x, w, y; rows, h, eps, x dtype, w dtype, stream
+            # x, w, y; rows, h, eps, x dtype, w dtype
             lib.rms_norm_fwd_launch.argtypes = (
                 [_c_void] * 3 + [_c_int] * 2 + [ctypes.c_float]
-                + [_c_int] * 2 + [_c_void])
+                + [_c_int] * 2 + tail)
             lib.rms_norm_fwd_launch.restype = _c_int
             # x, w, g, dx, dw, workspace; rows, h, rows a block, eps,
-            # x dtype, w dtype, stream
+            # x dtype, w dtype
             lib.rms_norm_bwd_launch.argtypes = (
                 [_c_void] * 6 + [_c_int] * 3 + [ctypes.c_float]
-                + [_c_int] * 2 + [_c_void])
+                + [_c_int] * 2 + tail)
             lib.rms_norm_bwd_launch.restype = _c_int
             _lib = lib
         return _lib

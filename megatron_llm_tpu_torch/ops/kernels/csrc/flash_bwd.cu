@@ -25,6 +25,7 @@
 // tiles in shared memory, one warp per row).  bf16 at head_dim 64 / 128
 // takes the Hopper kernels of flash_bwd_hopper.cu, as the entry points'
 // `path` says (ops/kernels/__init__.py: flash_path).
+#include "device_guard.cuh"
 #include "flash_common.cuh"
 
 namespace flash {
@@ -280,7 +281,10 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                                    void* tile_counter, int b, int sq,
                                    int skv, int n, int nkv, int d, float scale,
                                    int causal, int window, int dtype,
-                                   int out_f32, int path, void* stream) {
+                                   int out_f32, int path, int device,
+                                   void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   flash::Params p = flash::bwd_params(q, k, v, dout, lse, delta, seg_q, seg_kv,
                                       strides, b, sq, skv, n, nkv, scale, causal,
                                       window, out_f32);
@@ -296,7 +300,10 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     void* tile_counter, int b, int sq,
                                     int skv, int n, int nkv, int d, float scale,
                                     int causal, int window, int dtype,
-                                    int out_f32, int path, void* stream) {
+                                    int out_f32, int path, int device,
+                                    void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   flash::Params p = flash::bwd_params(q, k, v, dout, lse, delta, seg_q, seg_kv,
                                       strides, b, sq, skv, n, nkv, scale, causal,
                                       window, out_f32);

@@ -20,6 +20,7 @@
 // memory; per kv tile the block stages K and V, forms S = Q K^T, runs the
 // online softmax one warp per row (rescaling the fp32 accumulator in
 // shared memory), and accumulates P V.
+#include "device_guard.cuh"
 #include "flash_common.cuh"
 
 namespace flash {
@@ -145,7 +146,9 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const long long* geo, void* tile_counter, int b, int sq,
                                 int skv, int n, int nkv, int d, float scale, int causal,
                                 int window, int dtype, int out_f32, int path,
-                                void* stream) {
+                                int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   flash::Params p{};
   p.q = q;
   p.k = k;

@@ -3,7 +3,8 @@
 // barriers, register reallocation (setmaxnreg), wgmma shared-memory
 // descriptors, the wgmma products the flash kernels use, and the fences
 // around them.  Used by flash_fwd_hopper.cu (K1) and flash_bwd_hopper.cu
-// (K2 / K3).
+// (K2 / K3); paged_tile.cuh (K4 / K5) uses the tensor maps, TMA loads and
+// mbarriers.
 //
 // Shared-memory tiles are [rows][64] bf16 sub-tiles: 128 bytes a row, laid
 // down by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B (each 16-byte chunk of
@@ -65,13 +66,14 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D bf16 map over a [b, s, heads, d] tensor: `geo` holds the global
-// dims innermost first (d, heads, s, b) and the byte strides of heads, s
-// and b (7 values).  A box is `rows` rows of one head by 64 columns,
-// 128B-swizzled; rows past s read as zeros and still count in the box's
-// transaction bytes.
-inline cudaError_t encode_rows_bf16(CUtensorMap* map, const void* base, const long long* geo,
-                                    uint32_t rows) {
+// A 4-D map of 16-bit elements (bf16, or fp16 for `type`) over a
+// [b, s, heads, d] tensor: `geo` holds the global dims innermost first (d,
+// heads, s, b) and the byte strides of heads, s and b (7 values).  A box is
+// `rows` rows of one head by 64 columns, 128B-swizzled; rows past s read as
+// zeros and still count in the box's transaction bytes.
+inline cudaError_t encode_rows_bf16(
+    CUtensorMap* map, const void* base, const long long* geo, uint32_t rows,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)geo[0], (cuuint64_t)geo[1], (cuuint64_t)geo[2],
@@ -79,7 +81,7 @@ inline cudaError_t encode_rows_bf16(CUtensorMap* map, const void* base, const lo
   const cuuint64_t strides[3] = {(cuuint64_t)geo[4], (cuuint64_t)geo[5], (cuuint64_t)geo[6]};
   const cuuint32_t box[4] = {64, 1, rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base),
                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -12,11 +12,14 @@
 // ragged kernel.  Design: grid (b, n_kv_heads), one block per (row, kv
 // head) owning the row's g = n/nkv query heads (native GQA, no K/V
 // expansion), walking the row's pages with the ragged kernel's device
-// function (paged_common.cuh: attend_row) and a horizon that never binds
-// (W * page).  The same function over the same [lo, hi) walk makes a row's
-// output bitwise the ragged kernel's for that row, which is the JAX
+// routine for the same `path` (paged_tile.cuh: attend_tile, each row a
+// tile of one; paged_common.cuh: attend_row) and a horizon that never
+// binds (W * page).  The same routine over the same [lo, hi) walk makes a
+// row's output bitwise the ragged kernel's for that row, which is the JAX
 // package's contract between the two kernels.
+#include "device_guard.cuh"
 #include "paged_common.cuh"
+#include "paged_tile.cuh"
 
 namespace paged {
 
@@ -49,17 +52,42 @@ decode_kernel(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace paged
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; path: 0 = rows, 1 = tile
+// (bf16 / fp16 at d 64 / 128 only); pages: the pools' page count;
+// seg_stages, segs, slots, the plan and the workspace: the tile path's
+// (paged_tile.cuh: Args); device: the tensors' device.  Returns a
+// cudaError_t.
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    const void* v_pool,
                                    const void* block_tables,
                                    const void* positions, void* out, int b,
                                    int n, int nkv, int d, int W, int page,
-                                   float scale, int window, int dtype,
+                                   int pages, float scale, int window,
+                                   int seg_stages, int segs, int slots,
+                                   void* plan, void* ws_ml, void* ws_o,
+                                   int dtype, int path, int device,
                                    void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    paged::tile::Args a{};
+    a.q = q;
+    a.out = out;
+    a.tables = static_cast<const int*>(block_tables);
+    a.table_index = nullptr;
+    a.positions = static_cast<const int*>(positions);
+    a.horizons = nullptr;
+    a.plan = static_cast<int*>(plan);
+    a.ws_ml = static_cast<float*>(ws_ml);
+    a.ws_o = static_cast<float*>(ws_o);
+    a.rows = b, a.n = n, a.nkv = nkv, a.W = W, a.page = page, a.pages = pages;
+    a.window = window, a.seg_stages = seg_stages, a.segs = segs, a.slots = slots;
+    a.scale = scale;
+    return (int)paged::tile::launch(a, k_pool, v_pool, d, dtype, st);
+  }
   const dim3 grid(b, nkv);
   const int gp = paged::heads_per_pass(n / nkv, d);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   PAGED_DISPATCH(paged::decode_kernel, dtype, d, gp, grid, st, err, q, k_pool,
                  v_pool, static_cast<const int*>(block_tables),

@@ -17,6 +17,7 @@
 // (paged_common.cuh: attend_row), and writes its rows of the output.  The
 // chunk's tokens share their pages, which the 50 MB L2 serves after the
 // first read.
+#include "device_guard.cuh"
 #include "paged_common.cuh"
 
 namespace paged {
@@ -50,14 +51,18 @@ prefill_kernel(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace paged
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; device: the tensors'
+// device.  Returns a cudaError_t.
 extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
                                     const void* v_pool,
                                     const void* block_tables,
                                     const void* start, void* out, int b,
                                     int s_len, int n, int nkv, int d,
                                     int kv_pages, int page, float scale,
-                                    int window, int dtype, void* stream) {
+                                    int window, int dtype, int device,
+                                    void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const dim3 grid(b, nkv, s_len);
   const int gp = paged::heads_per_pass(n / nkv, d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

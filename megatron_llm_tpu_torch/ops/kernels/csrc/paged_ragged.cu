@@ -8,14 +8,21 @@
 // returns exact zeros.
 //
 // Bound on the H100: the bytes of K/V pages read (3.35 TB/s); about 4
-// flops per byte, far below the tensor cores' ridge.  Design: grid
-// (R, n_kv_heads), one block per (row, kv head) owning the row's g = n/nkv
-// query heads, so each page of the row's context is read once for the
-// whole GQA group; the block's warps split the row's context into 8-token
-// chunks and keep the online softmax in registers (paged_common.cuh:
-// attend_row), so a row's work scales with its own context and many loads
-// are in flight per SM.
+// flops per byte, far below the tensor cores' ridge.  Two device routines,
+// picked by type and head_dim in Python (ops/kernels/__init__.py:
+// paged_path) and passed as `path`:
+//
+// * path 1, "tile" (bf16 / fp16 at head_dim 64 and 128): adjacent rows on
+//   one table share a block and its page loads, and the products run on
+//   the tensor cores (paged_tile.cuh: the design and the per-row contract);
+// * path 0, "rows" (fp32, head_dim 256): grid (R, n_kv_heads), one block
+//   per (row, kv head) owning the row's g = n/nkv query heads, so each page
+//   of the row's context is read once for the whole GQA group; the block's
+//   warps split the row's context into 8-token chunks and keep the online
+//   softmax in registers (paged_common.cuh: attend_row).
+#include "device_guard.cuh"
 #include "paged_common.cuh"
+#include "paged_tile.cuh"
 
 namespace paged {
 
@@ -50,18 +57,43 @@ ragged_kernel(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace paged
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; path: 0 = rows, 1 = tile
+// (bf16 / fp16 at d 64 / 128 only); pages: the pools' page count;
+// seg_stages, segs, slots, the plan and the workspace: the tile path's
+// (paged_tile.cuh: Args); device: the tensors' device.  Returns a
+// cudaError_t.
 extern "C" int paged_ragged_launch(const void* q, const void* k_pool,
                                    const void* v_pool, const void* tables,
                                    const void* table_index,
                                    const void* positions,
                                    const void* horizons, void* out, int R,
                                    int n, int nkv, int d, int W, int page,
-                                   float scale, int window, int dtype,
+                                   int pages, float scale, int window,
+                                   int seg_stages, int segs, int slots,
+                                   void* plan, void* ws_ml, void* ws_o,
+                                   int dtype, int path, int device,
                                    void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    paged::tile::Args a{};
+    a.q = q;
+    a.out = out;
+    a.tables = static_cast<const int*>(tables);
+    a.table_index = static_cast<const int*>(table_index);
+    a.positions = static_cast<const int*>(positions);
+    a.horizons = static_cast<const int*>(horizons);
+    a.plan = static_cast<int*>(plan);
+    a.ws_ml = static_cast<float*>(ws_ml);
+    a.ws_o = static_cast<float*>(ws_o);
+    a.rows = R, a.n = n, a.nkv = nkv, a.W = W, a.page = page, a.pages = pages;
+    a.window = window, a.seg_stages = seg_stages, a.segs = segs, a.slots = slots;
+    a.scale = scale;
+    return (int)paged::tile::launch(a, k_pool, v_pool, d, dtype, st);
+  }
   const dim3 grid(R, nkv);
   const int gp = paged::heads_per_pass(n / nkv, d);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   PAGED_DISPATCH(paged::ragged_kernel, dtype, d, gp, grid, st, err, q, k_pool,
                  v_pool, static_cast<const int*>(tables),

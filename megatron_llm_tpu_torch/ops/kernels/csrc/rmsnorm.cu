@@ -28,6 +28,8 @@
 //   writes them to a workspace [chunks, h]; a second kernel sums the chunks
 //   in a fixed order and rounds once to w's type.  No atomics: dw is
 //   bitwise the same from run to run.
+#include "device_guard.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -328,13 +330,16 @@ bool valid(int rows, int h, int x_dtype, int w_dtype) {
 
 }  // namespace rmsnorm
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; w is float32 or x's type.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; w is float32 or x's type;
+// device: the tensors' device.
 // Every pointer 16-byte aligned, every tensor contiguous.  Returns a
 // cudaError_t.
 extern "C" int rms_norm_fwd_launch(const void* x, const void* w, void* y,
                                    int rows, int h, float eps, int x_dtype,
-                                   int w_dtype, void* stream) {
+                                   int w_dtype, int device, void* stream) {
   using namespace rmsnorm;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (!valid(rows, h, x_dtype, w_dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wf = w_dtype == 0;
@@ -350,8 +355,11 @@ extern "C" int rms_norm_fwd_launch(const void* x, const void* w, void* y,
 extern "C" int rms_norm_bwd_launch(const void* x, const void* w, const void* g,
                                    void* dx, void* dw, void* part, int rows,
                                    int h, int rows_per_chunk, float eps,
-                                   int x_dtype, int w_dtype, void* stream) {
+                                   int x_dtype, int w_dtype, int device,
+                                   void* stream) {
   using namespace rmsnorm;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (!valid(rows, h, x_dtype, w_dtype) || rows_per_chunk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -11,9 +11,13 @@ Each function has two implementations with the same contract:
 
 * the CUDA kernels in ``ops/kernels`` (``csrc/paged_ragged.cu``,
   ``csrc/paged_decode.cu`` and ``csrc/paged_prefill.cu``): the ragged
-  tick, the speculative draft's decode step and the prefill chunk; each
-  block walks its row's pages straight
-  out of the pool, so no ``[rows, context]`` gather ever materializes;
+  tick, the speculative draft's decode step and the prefill chunk; they
+  walk the rows' pages straight out of the pool, so no ``[rows, context]``
+  gather ever materializes.  In bf16 / fp16 at head_dim 64 and 128 the
+  ragged and decode kernels run ``csrc/paged_tile.cuh``: adjacent rows on
+  one table share their page loads and the products run on the tensor
+  cores, and a row's output does not depend on the rows beside it
+  (``ops/kernels/__init__.py:paged_path``);
 * the plain PyTorch versions below: gather the block-tabled pages into a
   dense view and run :func:`ops.attention.xla_attention` in fp32 — the
   kernels' arithmetic (fp32 scores, softmax and accumulator, output cast

@@ -61,8 +61,12 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """K7 on CUDA tensors, its plain version on CPU tensors."""
-    if x.device.type == "cuda":
+    """K7 on CUDA tensors, its plain version on CPU tensors.  A contiguous
+    ``[rows, h]`` x goes to the kernel as it is: no view is made on the
+    way (host time a launch)."""
+    if x.is_cuda:
+        if x.dim() == 2 and x.is_contiguous() and w.is_contiguous():
+            return kernels.rms_norm_fwd_kernel(x, w, eps)
         return kernels.rms_norm_fwd_kernel(_rows(x), w.contiguous(),
                                            eps).reshape(x.shape)
     return rms_norm_fwd_plain(x, w, eps)

@@ -27,7 +27,10 @@ Checks, in order (``--quick`` cuts the flash sweep to seq 1024 and 4096):
   fused kernels into the model;
 * RMSNorm at the model's shapes: K7, K8, their plain versions and ``F.rms_norm`` at
   the model's shapes (a train sequence ``[4096, 4096]``, a serve tick
-  ``[80, 4096]``).
+  ``[80, 4096]``), with the host's µs a launch;
+* K7's launch stages: the host µs a call of each stage of K7's launch at
+  the serve-tick shape (checks, allocation, device, stream, the ctypes
+  call), beside the whole wrapper and ``F.rms_norm``.
 
 Prints one ``PASS`` / ``FAIL`` line per check and the timing tables;
 :func:`main` returns 0 iff every check passes.  It runs on the card only:
@@ -106,6 +109,7 @@ EPS = 1e-6   # the RMSNorm epsilon of every check and timing
 RMSNORM_SHAPE = (4, 1024, 2048)
 MICRO_SHAPE = (16, 1024, 1024)
 MODEL_SHAPES = {"train sequence": (4096, 4096), "serve tick": (80, 4096)}
+HOST_CALLS = 200   # calls a host_us reading takes where the card is slower
 SWEEP = dict(b=4, n=16, d=128)
 
 
@@ -211,16 +215,41 @@ def device_ms(fn: Callable[[], object], iters: int = 10,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
-             for ev in prof.key_averages()
-             if str(getattr(ev, "device_type", "")).endswith("CUDA"))
-    if not us > 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    # now and then the profiler records no device activity at all: one
+    # more window before that is an error
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0))
+                 for ev in prof.key_averages()
+                 if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
+def host_us(fn: Callable[[], object], n: int = 10000,
+            warmup: int = 20) -> float:
+    """Host µs a call of ``n`` back-to-back calls by ``time.perf_counter_ns``,
+    with no synchronisation inside: what the caller's thread spends to
+    enqueue a call, not what the card spends on it.  Keep ``n`` times the
+    launches a call makes under CUDA's queue of pending launches
+    (about a thousand) where the card is the slower, or the host waits on
+    the queue and the time is the card's."""
+    import time
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -451,8 +480,10 @@ def rmsnorm_times(dev: torch.device, rows: int, h: int,
     ``ms`` (the kernel), ``plain_ms`` and ``library_ms`` (``F.rms_norm``
     forward; its backward as forward + backward less forward) in CUDA-event
     ms, each kernel / plain pair the better of two timings taken in turns
-    (plain, kernel, kernel, plain); the kernel's ``device_ms``; and its
-    ``bytes``, ``flops``, ``bound_ms`` and ``bound_by``."""
+    (plain, kernel, kernel, plain); the kernel's ``device_ms``; its host
+    µs a launch ``host_us`` (:func:`host_us`; K7 also ``F.rms_norm``'s,
+    ``library_host_us``); and its ``bytes``, ``flops``, ``bound_ms`` and
+    ``bound_by``."""
     gen = _gen(dev, 11)
     x = _randn((rows, h), gen, dtype)
     w = _randn((h,), gen) * 0.1 + 1.0
@@ -466,9 +497,13 @@ def rmsnorm_times(dev: torch.device, rows: int, h: int,
     }
     out = {}
     for name, (ker, plain) in pairs.items():
-        p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, ker, ker, plain))
+        # 100 calls a reading: at the serve tick both K7 and F.rms_norm are
+        # host-bound, and 20 calls left host jitter in the comparison
+        p1, k1, k2, p2 = (cuda_ms(f, iters=100) for f in (plain, ker, ker,
+                                                           plain))
         out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                         device_ms=device_ms(ker, iters=20))
+                         device_ms=device_ms(ker, iters=20),
+                         host_us=host_us(ker, n=HOST_CALLS))
     leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
 
     def lib_fwd():
@@ -476,9 +511,10 @@ def rmsnorm_times(dev: torch.device, rows: int, h: int,
             return F.rms_norm(x, (h,), w, EPS)
 
     lib_both = _fwd_bwd(lambda a, b: F.rms_norm(a, (h,), b, EPS), leaves, g)
-    t_fwd = min(cuda_ms(lib_fwd) for _ in range(2))
-    t_both = min(cuda_ms(lib_both) for _ in range(2))
+    t_fwd = min(cuda_ms(lib_fwd, iters=100) for _ in range(2))
+    t_both = min(cuda_ms(lib_both, iters=100) for _ in range(2))
     out["K7"]["library_ms"] = t_fwd
+    out["K7"]["library_host_us"] = host_us(lib_fwd, n=HOST_CALLS)
     out["K8"]["library_ms"] = t_both - t_fwd
     for name, (nbytes, flops) in rmsnorm_work(rows, h, dtype, dtype).items():
         b_ms, b_by = bound(nbytes, flops, "float32")
@@ -496,7 +532,8 @@ def rmsnorm_shapes(dev: torch.device) -> None:
           "(the kernel's device ms; the bound and its share of the device "
           "ms) --", flush=True)
     print(f"{'shape':>22} {'kernel':>9} {'device':>8} {'bound':>8} "
-          f"{'share':>6} {'plain':>9} {'F.rms_norm':>10}", flush=True)
+          f"{'share':>6} {'plain':>9} {'F.rms_norm':>10} {'host us':>8} "
+          f"{'F host us':>9}", flush=True)
     for label, (rows, h) in MODEL_SHAPES.items():
         t = rmsnorm_times(dev, rows, h)
         for name in ("K7", "K8"):
@@ -504,8 +541,72 @@ def rmsnorm_shapes(dev: torch.device) -> None:
             print(f"{name + ' ' + label:>22} {r['ms']:>9.4f} "
                   f"{r['device_ms']:>8.4f} {r['bound_ms']:>8.4f} "
                   f"{r['bound_ms'] / r['device_ms']:>6.1%} "
-                  f"{r['plain_ms']:>9.4f} {r['library_ms']:>10.4f}",
+                  f"{r['plain_ms']:>9.4f} {r['library_ms']:>10.4f} "
+                  f"{r['host_us']:>8.2f} "
+                  f"{r.get('library_host_us', float('nan')):>9.2f}",
                   flush=True)
+
+
+def rmsnorm_launch_stages(dev: torch.device, n: int = 10000) -> dict:
+    """Host µs a call of each stage of K7's launch at the serve-tick shape
+    (``MODEL_SHAPES["serve tick"]``, bf16 x and w), by :func:`host_us`: the
+    wrapper's checks, the output's allocation, two ways each to enter the
+    tensor's device, to name PyTorch's current stream and to hand the
+    pointers to ctypes, the whole wrapper, ``ops.rmsnorm.rms_norm_fwd``
+    (what the K7 rows time) and ``F.rms_norm``.  Prints the table and
+    returns it."""
+    import ctypes
+
+    from megatron_llm_tpu_torch.ops import kernels
+    from megatron_llm_tpu_torch.ops.kernels import build
+
+    rows, h = MODEL_SHAPES["serve tick"]
+    gen = _gen(dev, 13)
+    x = _randn((rows, h), gen, torch.bfloat16)
+    w = (_randn((h,), gen) * 0.1 + 1.0).to(torch.bfloat16)
+    y = torch.empty_like(x)
+    idx = x.get_device()
+    fn = build.library().rms_norm_fwd_launch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    st = torch.cuda.current_stream(dev).cuda_stream
+    c_ptr = ctypes.c_void_p
+
+    def enter_device():
+        with torch.cuda.device(x.device):
+            pass
+
+    stages = {
+        "checks (kernels._check_rms)":
+            lambda: kernels._check_rms("rms_norm_fwd_kernel", x, w, ()),
+        "allocation (torch.empty_like)": lambda: torch.empty_like(x),
+        "device: with torch.cuda.device": enter_device,
+        "device: x.get_device()": lambda: x.get_device(),
+        "stream: torch.cuda.current_stream": lambda: c_ptr(
+            torch.cuda.current_stream(x.device).cuda_stream),
+        "library: build.library()": build.library,
+        "ctypes call, c_void_p objects": lambda: fn(
+            c_ptr(x.data_ptr()), c_ptr(w.data_ptr()), c_ptr(y.data_ptr()),
+            rows, h, EPS, 1, 1, idx, c_ptr(st)),
+        "ctypes call, plain ints": lambda: fn(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, h, EPS, 1, 1, idx,
+            st),
+        "wrapper (kernels.rms_norm_fwd_kernel)":
+            lambda: kernels.rms_norm_fwd_kernel(x, w, EPS),
+        "K7 as timed (ops.rmsnorm.rms_norm_fwd)":
+            lambda: rms_norm_fwd(x, w, EPS),
+        "F.rms_norm": lambda: F.rms_norm(x, (h,), w, EPS),
+    }
+    if raw is not None:
+        stages["stream: torch._C._cuda_getCurrentRawStream"] = (
+            lambda: raw(idx))
+    out = {name: host_us(f, n) for name, f in stages.items()}
+    print(f"\n-- K7's launch, host us a call over {n} calls at "
+          f"[{rows}, {h}] bf16 (perf_counter, no sync inside) --", flush=True)
+    for name, us in out.items():
+        print(f"  {name:46s} {us:8.2f}", flush=True)
+    del x, w, y
+    _free(dev)
+    return out
 
 
 def _free(dev: torch.device) -> None:
@@ -514,7 +615,8 @@ def _free(dev: torch.device) -> None:
 
 
 CHECKS = (numerics_checks, rmsnorm_check, flash_sweep, window_check,
-          long_context_fit, rmsnorm_micro, rmsnorm_shapes)
+          long_context_fit, rmsnorm_micro, rmsnorm_shapes,
+          rmsnorm_launch_stages)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

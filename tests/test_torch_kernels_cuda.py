@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: paged attention (K4 ragged, K5 decode, K6 prefill; K5 also bitwise
-against K4 on the same rows), flash attention (K1-K3, and the Hopper
+against K4 on the same rows; K4 on ticks shaped as its tile routine
+groups rows, each row bitwise the same alone and in a permuted tick, the
+path rule, a planted scale fault), flash attention (K1-K3, and the Hopper
 kernels of K1 and of K2 / K3 at their tile edges, K2 / K3 also bitwise
 across runs) and fused RMSNorm (K7 forward, K8 backward).
 
@@ -127,6 +129,170 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
 
 
 # ---------------------------------------------------------------------------
+# K4's tile routine (csrc/paged_tile.cuh): ticks shaped as it groups rows
+# ---------------------------------------------------------------------------
+
+# Ragged ticks whose rows the tile routine groups (adjacent rows on one
+# table, cut at multiples of 16 / g rows); each is a list of
+# (table, position) rows, table 0 the null table, position None a dead row
+# (horizon 0).  ``ragged_layout`` builds them in numpy; the CPU tests hold
+# the plain version to the Pallas kernel on the same layouts.
+def _layout_rows(name, g):
+    if name == "prefill-two-tiles":   # > 64 / g rows of one prefill chunk
+        return ([(1, 30)] + [(2, 5 + i) for i in range(64 // g + 3)]
+                + [(0, None)] * 2)
+    if name == "verify":   # K + 1 = 5 rows a slot; slot 3 past k_eff = 2
+        return ([(1, 40 + j) for j in range(5)]
+                + [(2, 20 + j) for j in range(5)]
+                + [(3, 60 + j) for j in range(3)] + [(0, 63), (0, 64)]
+                + [(4, j) for j in range(6)] + [(0, None)] * 2)
+    if name == "split":   # one table's rows split by another table's row
+        return ([(1, 10 + i) for i in range(6)] + [(2, 50)]
+                + [(1, 16 + i) for i in range(6)] + [(0, None)])
+    if name == "dead-between":   # dead rows between live ones
+        return [(1, 7), (0, None), (2, 33), (0, None), (1, 8), (0, None),
+                (3, 12), (3, 13), (0, None)]
+    if name == "long":   # contexts across the tile routine's segments
+        return ([(1, 630), (2, 509), (2, 510), (2, 511), (2, 512), (2, 513),
+                 (3, 100), (0, None)] + [(4, 600 + i) for i in range(18)])
+    raise ValueError(name)
+
+
+RAGGED_LAYOUTS = ("prefill-two-tiles", "verify", "split", "dead-between",
+                  "long")
+
+
+def ragged_layout(name, g, d, page, *, n_kv=2, seed=5):
+    """``(q, k_pool, v_pool, tables, table_index, positions, horizons,
+    live)`` in numpy (fp32 / int32) for layout ``name`` at GQA group g:
+    tables of 12 pages (80 for ``long``) over a pool of 48 (96)."""
+    rng = np.random.default_rng(seed)
+    W, n_pages = (80, 96) if name == "long" else (12, 48)
+    rows = _layout_rows(name, g)
+    tables = np.zeros((5, W), np.int32)
+    for t in range(1, 5):
+        tables[t] = rng.permutation(np.arange(1, n_pages))[:W]
+    idx = np.asarray([t for t, _ in rows], np.int32)
+    pos = np.asarray([0 if p is None else p for _, p in rows], np.int32)
+    live = np.asarray([p is not None for _, p in rows])
+    hor = np.where(live, (pos // 64 + 1) * 64, 0).astype(np.int32)
+    q = rng.normal(size=(len(rows), 1, n_kv * g, d)).astype(np.float32)
+    k = rng.normal(size=(n_pages, page, n_kv, d)).astype(np.float32)
+    v = rng.normal(size=(n_pages, page, n_kv, d)).astype(np.float32)
+    return q, k, v, tables, idx, pos, hor, live
+
+
+def _on_card(arrays, dtype):
+    q, k, v, tables, idx, pos, hor, live = arrays
+    dev = torch.device("cuda")
+    f = [torch.tensor(a, device=dev).to(dtype) for a in (q, k, v)]
+    i = [torch.tensor(a, device=dev) for a in (tables, idx, pos, hor)]
+    return (*f, *i), torch.tensor(live, device=dev)
+
+
+TOL[torch.float16] = 1e-2
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("g", [1, 3, 4, 32])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("layout", RAGGED_LAYOUTS)
+def test_ragged_layouts_match_plain(layout, dtype, d, g, window):
+    """K4 against its plain version on ticks shaped as the tile routine
+    groups them (g 3: tiles of 5 rows; g 32: one row, heads in two passes
+    of 16); dead rows exact zeros."""
+    args, live = _on_card(ragged_layout(layout, g, d, PAGE), dtype)
+    pt_kernels.reset_launch_counts()
+    ker = pt_paged.paged_attention_ragged(*args, sliding_window=window)
+    ref = pt_paged.paged_attention_ragged(*args, sliding_window=window,
+                                          use_kernel=False)
+    assert pt_kernels.paged_ragged_kernel.launches == 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(ker.float(), ref.float(), atol=tol, rtol=tol)
+    assert (ker[~live] == 0).all()
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("layout", RAGGED_LAYOUTS)
+def test_ragged_rows_do_not_depend_on_their_tile(layout, dtype, g):
+    """Each row's K4 output is bitwise the same in the full tick, alone,
+    and in a permuted tick (which regroups the rows into other tiles)."""
+    args, live = _on_card(ragged_layout(layout, g, 128, PAGE), dtype)
+    q, k, v, tables, idx, pos, hor = args
+
+    def k4(rows):
+        return pt_paged.paged_attention_ragged(
+            q[rows].contiguous(), k, v, tables, idx[rows].contiguous(),
+            pos[rows].contiguous(), hor[rows].contiguous(), sliding_window=9)
+
+    R = q.shape[0]
+    full = k4(torch.arange(R, device=q.device))
+    perm = torch.randperm(R, generator=torch.Generator().manual_seed(g))
+    perm = perm.to(q.device)
+    assert torch.equal(k4(perm)[torch.argsort(perm)], full)
+    for r in range(R):
+        assert torch.equal(k4(torch.tensor([r], device=q.device))[0],
+                           full[r]), r
+
+
+@pytest.mark.parametrize("g", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ragged_segments_fold_the_same_in_a_block_or_across_blocks(
+        dtype, g, monkeypatch):
+    """The tile routine's planner spreads a long tile's 512-token segments
+    over blocks through its workspace, or (no workspace) walks them in one
+    block: each row's output is bitwise the same either way, for K4 and for
+    K5 on the same rows."""
+    args, _ = _on_card(ragged_layout("long", g, 128, PAGE), dtype)
+    q, k, v, tables, idx, pos, hor = args
+    assert pt_kernels.paged_segments(tables.shape[1], PAGE)[1] > 1
+    spread = pt_kernels.paged_ragged_kernel(*args, scale=0.1)
+    dec_spread = pt_kernels.paged_decode_kernel(q[:1], k, v, tables[1:2],
+                                                pos[:1], scale=0.1)
+    monkeypatch.setattr(pt_kernels, "PAGED_WS_CAP", 0)
+    one_block = pt_kernels.paged_ragged_kernel(*args, scale=0.1)
+    dec_one = pt_kernels.paged_decode_kernel(q[:1], k, v, tables[1:2],
+                                             pos[:1], scale=0.1)
+    assert torch.equal(spread, one_block)
+    assert torch.equal(dec_spread, dec_one)
+    assert torch.equal(dec_one[0], one_block[0])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_paged_kernels_record_the_path_the_rule_picks(dtype, d):
+    """K4 and K5 run the tile routine for bf16 / fp16 at head_dim 64 / 128
+    and attend_row for fp32 and head_dim 256, and say so in ``last_path``."""
+    want = ("tile" if dtype != torch.float32 and d in (64, 128) else "rows")
+    assert pt_kernels.paged_path(dtype, d) == want
+    args, _ = _on_card(ragged_layout("verify", 4, d, PAGE), dtype)
+    q, k, v, tables, idx, pos, hor = args
+    pt_kernels.paged_ragged_kernel(q, k, v, tables, idx, pos, hor, scale=0.1)
+    pt_kernels.paged_decode_kernel(q[:5], k, v, tables[:5], pos[:5],
+                                   scale=0.1)
+    assert (pt_kernels.paged_ragged_kernel.last_path,
+            pt_kernels.paged_decode_kernel.last_path) == (want, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ragged_planted_scale_fails_the_check(dtype):
+    """K4 run with its softmax scale 10% off must fail the bar that holds
+    it to its plain version at the right scale."""
+    args, _ = _on_card(ragged_layout("verify", 1, 128, PAGE), dtype)
+    scale = 1.0 / 128 ** 0.5
+    ker = pt_kernels.paged_ragged_kernel(*args, scale=1.1 * scale)
+    ref = pt_paged.paged_attention_ragged(*args, scale=scale,
+                                          use_kernel=False)
+    tol = TOL[dtype]
+    assert not torch.allclose(ker.float(), ref.float(), atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
 # paged decode: K5
 # ---------------------------------------------------------------------------
 
@@ -158,7 +324,8 @@ DECODE_SHAPES = {"mha": (4, 4, 128), "gqa-4/2": (4, 2, 128),
 
 @pytest.mark.parametrize("window", [None, 9])
 @pytest.mark.parametrize("shape", list(DECODE_SHAPES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_decode_kernel_matches_plain_and_ragged_bitwise(dtype, shape, window):
     n, nkv, d = DECODE_SHAPES[shape]
     q, k, v, tables, pos = _decode(n, nkv, d, dtype)

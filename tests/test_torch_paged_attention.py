@@ -225,3 +225,74 @@ def test_decode_wrapper_refuses_cpu_tensors():
     q, kp, vp, bt, pos = _decode_inputs(1)
     with pytest.raises(ValueError, match="CUDA"):
         pt_kernels.paged_decode_kernel(*_t(q, kp, vp, bt, pos), scale=0.125)
+
+
+# ---------------------------------------------------------------------------
+# ticks shaped as the CUDA kernel's tile routine groups rows
+# ---------------------------------------------------------------------------
+
+from test_torch_kernels_cuda import RAGGED_LAYOUTS, ragged_layout  # noqa: E402
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("layout", RAGGED_LAYOUTS)
+def test_ragged_layouts_plain_matches_pallas(layout, g, window):
+    """The plain version against the Pallas ``_ragged_kernel`` in interpret
+    mode on the layouts the CUDA kernel groups: a prefill run of > 64 / g
+    rows on one table, K + 1 = 5 verify rows a slot with rows past k_eff on
+    the null table, one table's rows split by another table's row, dead
+    rows between live ones."""
+    q, kp, vp, tables, idx, pos, hor, live = ragged_layout(layout, g, D, PAGE)
+    scale = 1.0 / D ** 0.5
+    ours = pt_paged.paged_attention_ragged(
+        *_t(q, kp, vp, tables, idx, pos, hor), scale=scale,
+        sliding_window=window).numpy()
+    interp = np.asarray(pallas_ragged(
+        *_j(q, kp, vp, tables, idx, pos, hor), scale=scale,
+        sliding_window=window, interpret=True))
+    np.testing.assert_allclose(ours, interp, atol=TOL, rtol=TOL)
+    assert (ours[~live] == 0).all() and (interp[~live] == 0).all()
+
+
+@pytest.mark.parametrize("layout", RAGGED_LAYOUTS)
+def test_ragged_plain_rows_survive_permuting_and_splitting_the_tick(layout):
+    """Each live row's plain output is bitwise the same when the tick's rows
+    are permuted, and when the tick is split into two ticks of whole
+    tables: a row's result depends on its own inputs, the per-row contract
+    the CUDA kernel keeps too (on the card also for a row run alone; the
+    plain version takes a table's rows as one batch, so there a row alone
+    may round differently)."""
+    q, kp, vp, tables, idx, pos, hor, live = ragged_layout(layout, 2, D, PAGE)
+    args = _t(q, kp, vp, tables, idx, pos, hor)
+    qt, kt, vt, tt, it, pt, ht = args
+
+    def plain(rows):
+        return pt_paged.paged_attention_ragged(
+            qt[rows], kt, vt, tt, it[rows], pt[rows], ht[rows],
+            sliding_window=9)
+
+    R = len(idx)
+    full = plain(torch.arange(R))
+    perm = torch.randperm(R, generator=torch.Generator().manual_seed(7))
+    permuted = plain(perm)[torch.argsort(perm)]
+    tables_a = set(np.unique(idx)[::2].tolist())
+    first = torch.tensor([r for r in range(R) if idx[r] in tables_a])
+    second = torch.tensor([r for r in range(R) if idx[r] not in tables_a])
+    split = torch.zeros_like(full)
+    split[first], split[second] = plain(first), plain(second)
+    for r in np.flatnonzero(live):
+        assert torch.equal(permuted[r], full[r]), r
+        assert torch.equal(split[r], full[r]), r
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_paged_path_rule(dtype, d):
+    """K4 / K5's device routine: the tensor-core tile routine for bf16 and
+    fp16 at head_dim 64 and 128, attend_row for fp32 (TF32 keeps too few
+    digits) and head_dim 256 (its accumulators do not fit)."""
+    want = ("tile" if dtype != torch.float32 and d in (64, 128) else "rows")
+    assert pt_kernels.paged_path(dtype, d) == want
+    assert want in pt_kernels.PAGED_PATHS
