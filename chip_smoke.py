@@ -23,7 +23,14 @@ Phases:
    rows, K4 / K5 must have run the routine ``paged_path`` names (bf16: the
    tensor-core tile routine, ``csrc/paged_tile.cuh``; fp32: attend_row),
    and each live row's K4 output must be bitwise the same run alone and in
-   a permuted tick.  K4 is also timed on the mixed tick's 8 decode rows
+   a permuted tick; K6 must run the routine ``paged_path`` names (bf16:
+   ``csrc/paged_prefill_tile.cuh``) and give the same bits on two
+   launches.  K6 is timed (bf16) on the mixed tick's chunk and, through
+   ``tools/prefill_shapes.py``, on the serve burst's log-prob chunks at
+   0-192, a chunk at 3968, GQA 32/8 and the draft's 32/4 heads at d 64,
+   each held to its plain version elementwise and by norm, with a planted
+   scale fault that must fail the norm bar; the serve burst's K6 launches
+   are priced at the end.  K4 is also timed on the mixed tick's 8 decode rows
    alone, on a decode-only tick (8 x 2048), on the verify tick and on the
    serve burst's two tick kinds (its 8 prompts half-way through their new
    tokens, alone and beside a 64-row chunk), each beside its bound (each
@@ -73,8 +80,8 @@ Phases:
    from a seed, NullTokenizer) and send concurrent ``PUT /api`` requests:
    greedy, one sampled with a seed, one with ``logprobs``.  Every answer
    must be 200 with the right lengths, and both paged kernels' launch
-   counters (set to 0 just before) must be > 0 after, K4 on the tile
-   routine; the K4 launches are split into ticks that carried prefill rows
+   counters (set to 0 just before) must be > 0 after, K4 and K6 on the
+   tile routine; the K4 launches are split into ticks that carried prefill rows
    and decode-only ticks (counted on the host from the engine's tick plan)
    and priced apart at the end.  With ``--profile`` a
    second burst of fresh greedy prompts runs under ``torch.profiler``
@@ -94,9 +101,8 @@ Phases:
    phase's burst goes through the port's server at ``spec_k=4``
    (adaptive), then through a ``spec_k=0`` engine on the same target.
    Every answer 200 with its lengths, K5, K4 and K6 launched (counters set
-   to 0 just before), K4 on the tile routine, acceptance >= 0.9; prints
-   ticks, tokens a tick, wall
-   time and decode tokens/s of both.  (c) a TinyLlama-shaped draft (22
+   to 0 just before), K4 and K6 on the tile routine, acceptance >= 0.9;
+   prints ticks, tokens a tick, wall time and decode tokens/s of both.  (c) a TinyLlama-shaped draft (22
    layers, hidden 2048, 32/4 heads: K5 at g 8, d 64) on the same target,
    one greedy burst: every answer 200, K5 launched, K4 on the tile
    routine.
@@ -347,7 +353,7 @@ def phase_kernels(dev, report, args):
                                  chunk_start=512, verify_rows=SPEC_K + 1),
     }
     tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
-    # K4 / K5's device routine by type (ops/kernels/__init__.py:paged_path;
+    # K4-K6's device routine by type (ops/kernels/__init__.py:paged_path;
     # every case here is at head_dim 64 or 128)
     want_path = {torch.float32: "rows", torch.bfloat16: "tile"}
     kernels.reset_launch_counts()
@@ -369,6 +375,14 @@ def phase_kernels(dev, report, args):
                               ("paged_decode", case.decode),
                               ("paged_prefill", case.prefill)):
                 ker = fn(True)
+                if kname == "paged_prefill":   # K6's routine, the same bits twice
+                    again = fn(True)
+                    path = kernels.paged_prefill_kernel.last_path
+                    if path != want_path[dtype] or not torch.equal(ker, again):
+                        raise AssertionError(
+                            f"paged_prefill on {name} {dtype}: the {path} "
+                            f"routine (want {want_path[dtype]}), two launches "
+                            f"equal: {torch.equal(ker, again)}")
                 ref = fn(False)
                 torch.cuda.synchronize()
                 err = (ker.float() - ref.float()).abs()
@@ -482,8 +496,30 @@ def phase_kernels(dev, report, args):
                 + (" and a 64-row chunk at 256" if chunk else ""),
                 work=(tick.ragged_bytes, tick.ragged_flops))
     del full, verify, tick
+    prefill_shapes(torch, gen, dev, rows["paged_prefill"])
     flash_kernels(dev, report)
     rmsnorm_kernels(dev, report)
+
+
+def prefill_shapes(torch, gen, dev, k6):
+    """K6 (bf16) at the mixed tick's chunk ((a), already timed: the table's
+    row) and at ``tools/prefill_shapes.py``'s other shapes, each held to
+    its plain version (elementwise and by norm, with a planted scale fault
+    that must fail the norm bar) and timed by events (the better of two),
+    on the device and on the host a launch, beside its bound: into the K6
+    row as ``<key>_*``."""
+    from megatron_llm_tpu_torch.ops import kernels
+    from megatron_llm_tpu_torch.tools.prefill_shapes import K6_SHAPES, measure
+
+    k6["path"] = kernels.paged_prefill_kernel.last_path
+    print(f"kernels: paged_prefill ({k6['path']} routine) on (a) the mixed "
+          f"tick's 64-row chunk at 512: {k6['ms']:.4f} ms by events (device "
+          f"{k6['device_ms']:.4f} ms, host {k6['host_us']:.1f} us a launch), "
+          f"bound {k6['bound_ms']:.4f} ms, "
+          f"{100 * k6['bound_ms'] / k6['device_ms']:.1f}% of it on the "
+          f"device", flush=True)
+    for key, spec, what in K6_SHAPES:
+        k6.update(measure(torch, gen, dev, key, spec, what))
 
 
 class FlashCase:
@@ -1123,14 +1159,16 @@ def _tick_kinds(engine) -> dict:
     return counts
 
 
-def _assert_k4_tile(where: str) -> None:
-    """The bf16 model at head_dim 128 runs K4 on the tensor-core routine."""
+def _assert_k4_tile(where: str, wrappers=("paged_ragged_kernel",)) -> None:
+    """The bf16 model at head_dim 128 runs K4 (and each of ``wrappers``)
+    on the tensor-core routine."""
     from megatron_llm_tpu_torch.ops import kernels
 
-    if kernels.paged_ragged_kernel.last_path != "tile":
-        raise AssertionError(f"K4 ran the "
-                             f"{kernels.paged_ragged_kernel.last_path} "
-                             f"routine on {where}, not the tile routine")
+    for name in wrappers:
+        path = getattr(kernels, name).last_path
+        if path != "tile":
+            raise AssertionError(f"{name} ran the {path} routine on "
+                                 f"{where}, not the tile routine")
 
 
 def phase_serve(dev, report, args):
@@ -1185,7 +1223,8 @@ def phase_serve(dev, report, args):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    _assert_k4_tile("the serve burst")
+    _assert_k4_tile("the serve burst",
+                    ("paged_ragged_kernel", "paged_prefill_kernel"))
     if kinds["prefill"][1] + kinds["decode"][1] != launches[
             "paged_ragged_kernel"]:
         raise AssertionError(f"K4 launches by tick kind {kinds} do not add "
@@ -1207,7 +1246,7 @@ def phase_serve(dev, report, args):
     print(f"serve: ticks that carried prefill rows {kinds['prefill'][0]} "
           f"({kinds['prefill'][1]} K4 launches), decode-only ticks "
           f"{kinds['decode'][0]} ({kinds['decode'][1]} K4 launches); K4 on "
-          f"the tile routine", flush=True)
+          f"the tile routine, K6 too", flush=True)
     if profile is not None:
         report["serve_profile"] = profile
         _print_profile(profile, wall / ticks)
@@ -1551,7 +1590,8 @@ def phase_spec(dev, report, args):
                     "paged_prefill_kernel"):
         if spec_l[wrapper] <= 0:
             raise AssertionError(f"{wrapper} never launched on the spec path")
-    _assert_k4_tile("the bf16 spec burst")
+    _assert_k4_tile("the bf16 spec burst",
+                    ("paged_ragged_kernel", "paged_prefill_kernel"))
     if not (stats["acceptance_rate"] or 0.0) >= SPEC_MIN_ACCEPT["bf16"]:
         raise AssertionError(f"identity-pair acceptance {stats}")
     out["serve"] = served
@@ -1942,7 +1982,8 @@ KERNEL_META = {
         wrapper="paged_decode_kernel", launches_from="spec_launches",
         library_note="no single PyTorch call reads a paged KV pool"),
     "paged_prefill": dict(
-        source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_prefill.cu",
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/"
+               "paged_prefill_tile.cuh",
         replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:134",
         wrapper="paged_prefill_kernel", launches_from="serve_launches",
         library_note="no single PyTorch call reads a paged KV pool"),
@@ -1961,7 +2002,7 @@ KERNEL_META = {
 
 
 # the extra timings a kernel row may carry (head_dim 64; K4's other ticks;
-# K7 at the serve tick's shape)
+# K7 at the serve tick's shape; K6's shapes come from tools/prefill_shapes.py)
 ROW_EXTRAS = ("d64_", "decode_rows_", "decode_only_", "verify_",
               "serve_decode_", "serve_mixed_", "serve_tick_")
 
@@ -2059,7 +2100,14 @@ def main(argv=None) -> int:
     if "kernels" in report and "serve_tick_kinds" in report:
         print_k4_price(report["kernels"]["paged_ragged"],
                        report["serve_tick_kinds"])
+        from megatron_llm_tpu_torch.tools.prefill_shapes import serve_price
+
+        serve_price(report["kernels"]["paged_prefill"],
+                    report["serve_launches"]["paged_prefill_kernel"])
     if "kernels" in report:
+        from megatron_llm_tpu_torch.tools.prefill_shapes import K6_SHAPES
+
+        extras = ROW_EXTRAS + tuple(key for key, _, _ in K6_SHAPES)
         line = []
         for kname, meta in KERNEL_META.items():
             row = report["kernels"][kname]
@@ -2077,7 +2125,7 @@ def main(argv=None) -> int:
                 "path": row.get("path", "single"),
                 **{k: row[k] for k in row
                    if k in ("tflop_s", "library_host_us")
-                   or k.startswith(ROW_EXTRAS)},
+                   or k.startswith(extras)},
             })
         print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)

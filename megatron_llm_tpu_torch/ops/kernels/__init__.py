@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -112,17 +112,19 @@ def _check_paged(name, q, k_pool, v_pool, ints):
     return dev, page, nkv, d
 
 
-PAGED_PATHS = ("rows", "tile")   # the K4 / K5 entry points' `path` codes
+PAGED_PATHS = ("rows", "tile")   # the K4-K6 entry points' `path` codes
 
 
 def paged_path(dtype: torch.dtype, head_dim: int) -> str:
-    """Which device routine K4 and K5 run (K6 always takes ``"rows"``):
-    ``"tile"`` (``csrc/paged_tile.cuh``: adjacent rows on one block table
-    share a block and its page loads, products on the tensor cores) for
-    bf16 and fp16 at head_dim 64 and 128; ``"rows"`` (``csrc/
-    paged_common.cuh``: ``attend_row``, a block per row, fp32 dots) for
-    fp32, whose products in TF32 would keep too few digits, and for
-    head_dim 256, whose accumulators do not fit a warp's registers."""
+    """Which device routine K4, K5 and K6 run: ``"tile"`` for bf16 and
+    fp16 at head_dim 64 and 128 (K4 / K5: ``csrc/paged_tile.cuh``,
+    adjacent rows on one block table share a block and its page loads;
+    K6: ``csrc/paged_prefill_tile.cuh``, 64 (row, head) pairs of a chunk
+    share each page load on wgmma; products on the tensor cores);
+    ``"rows"`` (``csrc/paged_common.cuh``: ``attend_row``, a block per
+    row, fp32 dots) for fp32, whose products in TF32 would keep too few
+    digits, and for head_dim 256, whose accumulators do not fit the
+    registers."""
     if dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128):
         return "tile"
     return "rows"
@@ -258,11 +260,59 @@ def paged_decode_kernel(q, k_pool, v_pool, block_tables, positions, *,
     return out
 
 
+# K6's tile routine (csrc/paged_prefill_tile.cuh): a tile is 64 (row, head)
+# pairs of one kv head; its walk over the context is cut at multiples of a
+# segment, each segment one block, and the segments of a tile (at most
+# PREFILL_MAX_SEGS: one cluster) fold through distributed shared memory.
+# The wrapper sizes the segments from the shapes alone (never from
+# ``start``: no host sync).
+PREFILL_PAIRS = 64          # (row, head) pairs a tile holds: wgmma's m64
+PREFILL_BLOCKS_PER_SM = 2   # blocks an SM holds (the sizing's target)
+PREFILL_MAX_SEGS = 4        # segments a tile: the blocks of a cluster
+
+
+class PrefillPlan(NamedTuple):
+    """The segments of a K6 tile-path launch, from shapes alone:
+    ``seg_stages`` 64-token stages a segment and ``segs`` segments a table
+    (the blocks of a cluster)."""
+    seg_stages: int
+    segs: int
+
+
+def prefill_tile_shape(g: int):
+    """``(heads a pass, passes, chunk tokens a tile)`` of K6's tile routine
+    for a GQA group of g heads (``paged_prefill_tile.cuh``: pass_heads,
+    head_passes, tile_tokens): a tile is 64 (row, head) pairs of one kv
+    head."""
+    heads = min(g, PREFILL_PAIRS)
+    return heads, -(-g // heads), PREFILL_PAIRS // heads
+
+
+@functools.lru_cache(maxsize=1024)
+def prefill_tile_plan(s: int, n: int, nkv: int, W: int, page: int,
+                      sms: int) -> PrefillPlan:
+    """The segments of a K6 tile-path launch on a card of ``sms`` SMs: a
+    segment holds enough stages that one sequence's tiles x segments about
+    fill the card (``PREFILL_BLOCKS_PER_SM`` blocks an SM), and at least
+    ``1 / PREFILL_MAX_SEGS`` of the table.  The cuts, and with them a row's
+    arithmetic, depend on the chunk's shapes and the table's width ``W``,
+    not on the batch: a sequence gives the same bits alone and beside
+    others at the same table width.  Cached: a launch looks its shapes up."""
+    _, passes, tokens = prefill_tile_shape(n // nkv)
+    tiles_a_seq = nkv * passes * -(-s // tokens)
+    stages = -(-(W * page) // PAGED_SPAN)
+    seg = max(-(-(tiles_a_seq * stages) // (PREFILL_BLOCKS_PER_SM * sms)),
+              -(-stages // PREFILL_MAX_SEGS), 1)
+    return PrefillPlan(seg, max(1, -(-stages // seg)))
+
+
 def paged_prefill_kernel(q, k_pool, v_pool, block_tables, start, *,
                          scale: float,
                          sliding_window: Optional[int] = None) -> torch.Tensor:
-    """CUDA chunked-prefill paged attention (``csrc/paged_prefill.cu``);
-    same contract as ``ops.paged_attention.paged_attention_prefill``."""
+    """CUDA chunked-prefill paged attention (``csrc/paged_prefill.cu``, on
+    the device routine :func:`paged_path` picks, recorded in
+    ``paged_prefill_kernel.last_path``); same contract as
+    ``ops.paged_attention.paged_attention_prefill``."""
     name = "paged_prefill_kernel"
     dev, page, nkv, d = _check_paged(name, q, k_pool, v_pool, (
         ("block_tables", block_tables), ("start", start)))
@@ -276,16 +326,23 @@ def paged_prefill_kernel(q, k_pool, v_pool, block_tables, start, *,
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    if s > 65535:
-        raise ValueError(f"{name}: at most 65535 tokens per chunk, got {s}")
+    path = paged_path(q.dtype, d)
+    if path == "rows" and s > 65535:
+        raise ValueError(f"{name}: at most 65535 tokens per chunk on the "
+                         f"rows routine, got {s}")
+    W = block_tables.shape[1]
+    plan = (prefill_tile_plan(s, n, nkv, W, page, _sm_count(q.device))
+            if path == "tile" else PrefillPlan(0, 0))
     err = _library().paged_prefill_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), start.data_ptr(), out.data_ptr(), b, s, n,
-        nkv, d, block_tables.shape[1], page, float(scale),
-        _window(sliding_window), _DTYPES[q.dtype], dev, _stream(dev))
+        nkv, d, W, page, k_pool.shape[0], float(scale),
+        _window(sliding_window), plan.seg_stages, plan.segs,
+        _DTYPES[q.dtype], PAGED_PATHS.index(path), dev, _stream(dev))
     if err:
         _launch_error(name, err)
     paged_prefill_kernel.launches += 1
+    paged_prefill_kernel.last_path = path
     return out
 
 
@@ -638,6 +695,7 @@ paged_ragged_kernel.last_path = None
 paged_decode_kernel.launches = 0
 paged_decode_kernel.last_path = None
 paged_prefill_kernel.launches = 0
+paged_prefill_kernel.last_path = None
 flash_fwd_kernel.launches = 0
 flash_fwd_kernel.last_path = None
 flash_bwd_dq_kernel.launches = 0

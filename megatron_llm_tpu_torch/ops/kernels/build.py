@@ -126,10 +126,11 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                 + [_c_int] * 4 + [_c_void] * 3 + [_c_int] * 2 + tail)
             lib.paged_decode_launch.restype = _c_int
             # q, k_pool, v_pool, block_tables, start, out; b, s, n, nkv, d,
-            # kv_pages, page, scale, window, dtype
+            # kv_pages, page, pages, scale, window, seg_stages, segs, dtype,
+            # path
             lib.paged_prefill_launch.argtypes = (
-                [_c_void] * 6 + [_c_int] * 7
-                + [ctypes.c_float, _c_int, _c_int] + tail)
+                [_c_void] * 6 + [_c_int] * 8 + [ctypes.c_float]
+                + [_c_int] * 5 + tail)
             lib.paged_prefill_launch.restype = _c_int
             lib.paged_error_string.argtypes = [_c_int]
             lib.paged_error_string.restype = ctypes.c_char_p

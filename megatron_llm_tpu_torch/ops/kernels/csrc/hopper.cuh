@@ -4,7 +4,8 @@
 // descriptors, the wgmma products the flash kernels use, and the fences
 // around them.  Used by flash_fwd_hopper.cu (K1) and flash_bwd_hopper.cu
 // (K2 / K3); paged_tile.cuh (K4 / K5) uses the tensor maps, TMA loads and
-// mbarriers.
+// mbarriers; paged_prefill_tile.cuh (K6) also the wgmma products in bf16
+// and fp16, and the cluster barrier and loads that fold its segments.
 //
 // Shared-memory tiles are [rows][64] bf16 sub-tiles: 128 bytes a row, laid
 // down by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B (each 16-byte chunk of
@@ -35,6 +36,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <type_traits>
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace hopper {
 
@@ -162,6 +168,36 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Thread block clusters: a barrier over every block of the cluster (its
+// arrival releases this thread's writes, its wait acquires the others'),
+// and loads from another block's shared memory (distributed shared memory):
+// `addr` is this block's shared address of the same variable, `rank` the
+// other block's rank in the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // Hand registers between warpgroups; every warp of the warpgroup runs it.
 template <int N>
 __device__ __forceinline__ void regs_dec() {
@@ -206,109 +242,88 @@ __device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
+// The wgmma products, in bf16 (the default) or fp16 (T = __half): the
+// accumulator's registers as asm operands, the instruction with its
+// operand types spliced in.
+#define HOPPER_ACC4(d, j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define HOPPER_ACC32(d)                                                                   \
+  HOPPER_ACC4(d, 0), HOPPER_ACC4(d, 1), HOPPER_ACC4(d, 2), HOPPER_ACC4(d, 3),             \
+      HOPPER_ACC4(d, 4), HOPPER_ACC4(d, 5), HOPPER_ACC4(d, 6), HOPPER_ACC4(d, 7)
+#define HOPPER_ACC64(d)                                                                   \
+  HOPPER_ACC32(d), HOPPER_ACC4(d, 8), HOPPER_ACC4(d, 9), HOPPER_ACC4(d, 10),              \
+      HOPPER_ACC4(d, 11), HOPPER_ACC4(d, 12), HOPPER_ACC4(d, 13), HOPPER_ACC4(d, 14),     \
+      HOPPER_ACC4(d, 15)
+#define HOPPER_REGS32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HOPPER_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+// A and B from shared memory, both K-major; the predicate is scale_d.
+#define HOPPER_SS_ASM(N, TY, REGS, A, B, P)                                              \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"                                         \
+  "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " REGS ", %" A ", %" B     \
+  ", p, 1, 1, 0, 0;\n}\n"
+// A in registers, B from shared memory MN-major (the transpose bit);
+// scale_d is 1 (accumulate).
+#define HOPPER_RS_ASM(N, TY, REGS, A0, B, P)                                             \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"                                         \
+  "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " REGS ", {%" A0           \
+  "}, %" B ", p, 1, 1, 1;\n}\n"
+
 // d (+)= A B: m64n128k16, A and B from shared memory, both K-major;
 // scale_d 0 starts the sum from zero.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[16][4], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(HOPPER_SS_ASM("128", "f16", HOPPER_REGS64, "64", "65", "66")
+                 : HOPPER_ACC64(d) : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  else
+    asm volatile(HOPPER_SS_ASM("128", "bf16", HOPPER_REGS64, "64", "65", "66")
+                 : HOPPER_ACC64(d) : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // The same at n64 (a 64-row B tile).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[8][4], uint64_t desc_a,
                                                uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(HOPPER_SS_ASM("64", "f16", HOPPER_REGS32, "32", "33", "34")
+                 : HOPPER_ACC32(d) : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  else
+    asm volatile(HOPPER_SS_ASM("64", "bf16", HOPPER_REGS32, "32", "33", "34")
+                 : HOPPER_ACC32(d) : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // d += A B: A (m64 x k16) in registers as mma.sync A fragments, B from
 // shared memory MN-major (the transpose bit), n128 and n64.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[16][4],
                                                    const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(HOPPER_RS_ASM("128", "f16", HOPPER_REGS64, "64, %65, %66, %67", "68", "69")
+                 : HOPPER_ACC64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  else
+    asm volatile(HOPPER_RS_ASM("128", "bf16", HOPPER_REGS64, "64, %65, %66, %67", "68", "69")
+                 : HOPPER_ACC64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[8][4],
                                                    const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(HOPPER_RS_ASM("64", "f16", HOPPER_REGS32, "32, %33, %34, %35", "36", "37")
+                 : HOPPER_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  else
+    asm volatile(HOPPER_RS_ASM("64", "bf16", HOPPER_REGS32, "32, %33, %34, %35", "36", "37")
+                 : HOPPER_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 }  // namespace hopper

@@ -7,18 +7,26 @@
 // <= it (inside the sliding window) of its block table, whose pages the
 // chunk's own K/V were written into before the launch.
 //
-// Bound on the H100: the bytes of K/V pages read (3.35 TB/s) plus the
-// chunk's queries and outputs.  Design: the Pallas kernel's kv-head-major
-// query rows [b, nkv, s * g, d] become the grid (b, n_kv_heads, s): a block
-// owns the g rows of one token and one kv head (rows_per_block = g), reads
-// them straight from q's [b, s, n, d] layout (no transpose is
-// materialized), walks the pages up to its own position with the same
-// register-resident online softmax as the ragged kernel
-// (paged_common.cuh: attend_row), and writes its rows of the output.  The
-// chunk's tokens share their pages, which the 50 MB L2 serves after the
-// first read.
+// Bound on the H100: the bytes of K/V pages read, each page of a
+// sequence's context once (3.35 TB/s), plus the chunk's queries and
+// outputs; about 4 flops a byte, far below the tensor cores' ridge.  Two
+// device routines, picked by type and head_dim in Python
+// (ops/kernels/__init__.py: paged_path) and passed as `path`:
+//
+// * path 1, "tile" (bf16 / fp16 at head_dim 64 and 128): 64 (row, head)
+//   pairs of one kv head share each page load (TMA) and the products run
+//   on wgmma, the context cut into segments over blocks
+//   (paged_prefill_tile.cuh: the design);
+// * path 0, "rows" (fp32, head_dim 256): the Pallas kernel's kv-head-major
+//   query rows [b, nkv, s * g, d] become the grid (b, n_kv_heads, s): a
+//   block owns the g rows of one token and one kv head, reads them straight
+//   from q's [b, s, n, d] layout, and walks the pages up to its own position
+//   with the ragged kernel's register-resident online softmax
+//   (paged_common.cuh: attend_row); each row reads its context again, from
+//   L2 after the first.
 #include "device_guard.cuh"
 #include "paged_common.cuh"
+#include "paged_prefill_tile.cuh"
 
 namespace paged {
 
@@ -51,21 +59,35 @@ prefill_kernel(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace paged
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; device: the tensors'
-// device.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; path: 0 = rows, 1 = tile
+// (bf16 / fp16 at d 64 / 128 only); pages: the pools' page count;
+// seg_stages and segs: the tile path's segments (paged_prefill_tile.cuh:
+// Args); device: the tensors' device.  Returns a cudaError_t.
 extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
                                     const void* v_pool,
                                     const void* block_tables,
                                     const void* start, void* out, int b,
                                     int s_len, int n, int nkv, int d,
-                                    int kv_pages, int page, float scale,
-                                    int window, int dtype, int device,
-                                    void* stream) {
+                                    int kv_pages, int page, int pages,
+                                    float scale, int window, int seg_stages,
+                                    int segs, int dtype, int path,
+                                    int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    paged::prefill_tile::Args a{};
+    a.q = q;
+    a.out = out;
+    a.tables = static_cast<const int*>(block_tables);
+    a.start = static_cast<const int*>(start);
+    a.b = b, a.s = s_len, a.n = n, a.nkv = nkv, a.W = kv_pages, a.page = page;
+    a.pages = pages, a.window = window, a.seg_stages = seg_stages, a.segs = segs;
+    a.scale = scale;
+    return (int)paged::prefill_tile::launch(a, k_pool, v_pool, d, dtype, st);
+  }
   const dim3 grid(b, nkv, s_len);
   const int gp = paged::heads_per_pass(n / nkv, d);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   PAGED_DISPATCH(paged::prefill_kernel, dtype, d, gp, grid, st, err, q,
                  k_pool, v_pool, static_cast<const int*>(block_tables),

@@ -728,16 +728,16 @@ tile_kernel(const __grid_constant__ Args a) {
 // The pools' TMA maps (pools [pages, page, nkv, d], contiguous, 16-bit):
 // global dims innermost first (d, nkv, page, pages) and the byte strides of
 // nkv, page and pages; boxes of BOX tokens x 64 dims.  dtype 1 = bf16,
-// 2 = fp16.
-inline cudaError_t encode_pools(Args& a, const void* k_pool, const void* v_pool, int d,
+// 2 = fp16.  K6's tile routine (paged_prefill_tile.cuh) reads the same maps.
+inline cudaError_t encode_pools(CUtensorMap* tm_k, CUtensorMap* tm_v, const void* k_pool,
+                                const void* v_pool, int nkv, int page, int pages, int d,
                                 int dtype) {
   const long long row = 2ll * d;
-  const long long geo[7] = {d, a.nkv, a.page, a.pages, row, a.nkv * row,
-                            (long long)a.page * a.nkv * row};
+  const long long geo[7] = {d, nkv, page, pages, row, nkv * row, (long long)page * nkv * row};
   const CUtensorMapDataType type =
       dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  cudaError_t e = hopper::encode_rows_bf16(&a.tm_k, k_pool, geo, BOX, type);
-  if (e == cudaSuccess) e = hopper::encode_rows_bf16(&a.tm_v, v_pool, geo, BOX, type);
+  cudaError_t e = hopper::encode_rows_bf16(tm_k, k_pool, geo, BOX, type);
+  if (e == cudaSuccess) e = hopper::encode_rows_bf16(tm_v, v_pool, geo, BOX, type);
   return e;
 }
 
@@ -779,7 +779,8 @@ cudaError_t launch_typed(Args& a, cudaStream_t st) {
 // blocks.  dtype 1 = bf16, 2 = fp16; d 64 or 128.
 inline cudaError_t launch(Args& a, const void* k_pool, const void* v_pool, int d, int dtype,
                           cudaStream_t st) {
-  cudaError_t e = encode_pools(a, k_pool, v_pool, d, dtype);
+  cudaError_t e =
+      encode_pools(&a.tm_k, &a.tm_v, k_pool, v_pool, a.nkv, a.page, a.pages, d, dtype);
   if (e != cudaSuccess) return e;
   if (dtype == 1 && d == 64) return launch_typed<__nv_bfloat16, 64>(a, st);
   if (dtype == 1 && d == 128) return launch_typed<__nv_bfloat16, 128>(a, st);

@@ -2,7 +2,9 @@
 card: paged attention (K4 ragged, K5 decode, K6 prefill; K5 also bitwise
 against K4 on the same rows; K4 on ticks shaped as its tile routine
 groups rows, each row bitwise the same alone and in a permuted tick, the
-path rule, a planted scale fault), flash attention (K1-K3, and the Hopper
+path rule, a planted scale fault; K6 on chunks shaped as its tile
+routine cuts them, bitwise across runs and alone or beside another
+sequence at the same table width, a planted scale fault), flash attention (K1-K3, and the Hopper
 kernels of K1 and of K2 / K3 at their tile edges, K2 / K3 also bitwise
 across runs) and fused RMSNorm (K7 forward, K8 backward).
 
@@ -22,6 +24,8 @@ import torch
 
 from megatron_llm_tpu_torch.ops import kernels as pt_kernels
 from megatron_llm_tpu_torch.ops import paged_attention as pt_paged
+from megatron_llm_tpu_torch.tools.kernel_check import norm_rel
+from megatron_llm_tpu_torch.tools.prefill_shapes import NORM_BAR, PLANTED
 
 pytestmark = pytest.mark.cuda
 
@@ -62,18 +66,38 @@ def _ragged(g, d, dtype, seed=0, n_dead=3):
             i["hor"]), n_dead
 
 
-def _prefill(g, d, dtype, seed=1):
+# Prefill chunks shaped as K6's tile routine cuts them (tiles of 64 / g
+# chunk tokens x g heads; a table's walk in up to 4 segments): ``(b, s,
+# starts)``.  ``prefill_layout`` builds them in numpy; the CPU tests hold
+# the plain version to the JAX package on the same layouts.
+PREFILL_LAYOUTS = {
+    "base": (2, 21, (41, 5)),          # b 2, different starts
+    "two-tiles": (1, 150, (30,)),      # s g over two tiles or more, ragged
+    "at-zero": (2, 64, (0, 0)),        # chunks at position 0
+    "long": (2, 40, (1100, 700)),      # contexts cut into segments
+}
+
+
+def prefill_layout(name, g, d, page, *, n_kv=2, seed=1):
+    """``(q, k_pool, v_pool, block_tables, start)`` in numpy (fp32 / int32)
+    for layout ``name`` at GQA group g: each sequence on its own pages of
+    a pool, tables a page wider than the furthest chunk's end."""
+    b, s, starts = PREFILL_LAYOUTS[name]
     rng = np.random.default_rng(seed)
-    P, s = 24, 21
-    bt = np.asarray([[3, 9, 1, 14, 2, 0], [6, 11, 4, 0, 0, 0]], np.int32)
-    start = np.asarray([41, 5], np.int32)
+    W = -(-(max(starts) + s) // page) + 1
+    P = b * W + 1
+    bt = rng.permutation(np.arange(1, P))[:b * W].reshape(b, W)
+    q = rng.normal(size=(b, s, n_kv * g, d)).astype(np.float32)
+    k = rng.normal(size=(P, page, n_kv, d)).astype(np.float32)
+    v = rng.normal(size=(P, page, n_kv, d)).astype(np.float32)
+    return q, k, v, bt.astype(np.int32), np.asarray(starts, np.int32)
+
+
+def _prefill(layout, g, d, dtype):
+    q, k, v, bt, start = prefill_layout(layout, g, d, PAGE)
     dev = torch.device("cuda")
-    q, k, v = (torch.tensor(rng.normal(size=shape), dtype=torch.float32,
-                            device=dev).to(dtype)
-               for shape in ((2, s, N_KV * g, d), (P, PAGE, N_KV, d),
-                             (P, PAGE, N_KV, d)))
-    return (q, k, v, torch.tensor(bt, device=dev),
-            torch.tensor(start, device=dev))
+    return (*(torch.tensor(a, device=dev).to(dtype) for a in (q, k, v)),
+            torch.tensor(bt, device=dev), torch.tensor(start, device=dev))
 
 
 @pytest.mark.parametrize("window", [None, 9])
@@ -93,19 +117,73 @@ def test_ragged_kernel_matches_plain(dtype, g, d, window):
     assert (ker[-n_dead:] == 0).all()
 
 
-@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("window", [None, 9, 100])
 @pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_prefill_kernel_matches_plain(dtype, g, d, window):
-    args = _prefill(g, d, dtype)
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("layout", list(PREFILL_LAYOUTS))
+def test_prefill_kernel_matches_plain(layout, dtype, g, d, window):
+    """K6 against its plain version: the tile routine for bf16 / fp16 at
+    head_dim 64 / 128 (a window of 100 crosses its 64-token stages),
+    attend_row for fp32 and head_dim 256, as ``last_path`` says."""
+    args = _prefill(layout, g, d, dtype)
     pt_kernels.reset_launch_counts()
     ker = pt_paged.paged_attention_prefill(*args, sliding_window=window)
     assert pt_kernels.paged_prefill_kernel.launches == 1
+    assert pt_kernels.paged_prefill_kernel.last_path == (
+        "tile" if dtype != torch.float32 and d in (64, 128) else "rows")
     ref = pt_paged.paged_attention_prefill(*args, sliding_window=window,
                                            use_kernel=False)
     tol = TOL[dtype]
     torch.testing.assert_close(ker.float(), ref.float(), atol=tol, rtol=tol)
+    if dtype != torch.float32:
+        assert norm_rel(ker, ref) <= NORM_BAR
+
+
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["two-tiles", "long"])
+def test_prefill_planted_scale_fails_the_check(layout, dtype, g):
+    """K6's tile routine run with its softmax scale 10% off must fail the
+    norm bar that holds it to its plain version at the right scale: on a
+    chunk over several tiles, and on contexts whose walk is folded across
+    the 4 segments of a cluster ("long")."""
+    q, k, v, bt, start = args = _prefill(layout, g, 128, dtype)
+    if layout == "long":
+        plan = pt_kernels.prefill_tile_plan(
+            q.shape[1], q.shape[2], N_KV, bt.shape[1], PAGE,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        assert plan.segs == pt_kernels.PREFILL_MAX_SEGS
+    scale = 1.0 / 128 ** 0.5
+    ker = pt_paged.paged_attention_prefill(*args, scale=PLANTED * scale)
+    assert pt_kernels.paged_prefill_kernel.last_path == "tile"
+    ref = pt_paged.paged_attention_prefill(*args, scale=scale,
+                                           use_kernel=False)
+    assert norm_rel(ker, ref) > NORM_BAR
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["base", "long"])
+def test_prefill_tile_is_bitwise_stable(layout, dtype, g, d):
+    """K6's tile routine folds its segments in a fixed order without
+    atomics: two launches on the same inputs are ``torch.equal``, and each
+    sequence's output is ``torch.equal`` run alone and beside another at
+    the same table width (the segments are cut from the width)."""
+    q, k, v, bt, start = _prefill(layout, g, d, dtype)
+    first = pt_paged.paged_attention_prefill(q, k, v, bt, start,
+                                             sliding_window=100)
+    again = pt_paged.paged_attention_prefill(q, k, v, bt, start,
+                                             sliding_window=100)
+    assert pt_kernels.paged_prefill_kernel.last_path == "tile"
+    assert torch.equal(first, again)
+    for i in range(q.shape[0]):
+        alone = pt_paged.paged_attention_prefill(
+            q[i:i + 1].contiguous(), k, v, bt[i:i + 1].contiguous(),
+            start[i:i + 1].contiguous(), sliding_window=100)
+        assert torch.equal(alone[0], first[i]), i
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
