@@ -6,6 +6,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --phases build,kernels,train,train-check
     python3 chip_smoke.py --phases build,kernels,spec   # speculative slice
     python3 chip_smoke.py --phases build,kernels,kernel-check   # K7 / K8
+    python3 chip_smoke.py --phases build,kernels,kvq   # quantized KV pages
     python3 chip_smoke.py --profile       # + a serve burst under the profiler
 
 Phases:
@@ -30,8 +31,16 @@ Phases:
    0-192, a chunk at 3968, GQA 32/8 and the draft's 32/4 heads at d 64,
    each held to its plain version elementwise and by norm, with a planted
    scale fault that must fail the norm bar; the serve burst's K6 launches
-   are priced at the end.  K4 is also timed on the mixed tick's 8 decode rows
-   alone, on a decode-only tick (8 x 2048), on the verify tick and on the
+   are priced at the end.  K4, K5 and K6 over int8 and fp8 e4m3 pools (one
+   scale per page and kv head) at the Llama-2-7B, GQA 32/8, window and
+   draft shapes, fp32 (atol 1e-5) and bf16 (atol = rtol = 1e-2 and a
+   norm-relative error of 1e-2) against their plain versions: dead rows
+   exact zeros, K5 bitwise K4, two launches the same bits, the ``rows``
+   routine, and with the pages' scales 10% off each must fail the bf16
+   bar; each timed in bf16 at the serving shape beside its bound at the
+   quantized bytes (``<kernel>_int8`` / ``_fp8`` rows of the line).  K4
+   is also timed on the mixed tick's 8 decode rows alone, on a decode-only
+   tick (8 x 2048), on the verify tick and on the
    serve burst's two tick kinds (its 8 prompts half-way through their new
    tokens, alone and beside a 64-row chunk), each beside its bound (each
    page once).  Flash
@@ -83,7 +92,8 @@ Phases:
    counters (set to 0 just before) must be > 0 after, K4 and K6 on the
    tile routine; the K4 launches are split into ticks that carried prefill rows
    and decode-only ticks (counted on the host from the engine's tick plan)
-   and priced apart at the end.  With ``--profile`` a
+   and priced apart at the end; ``/health``'s pool bytes are kept for the
+   ``kvq`` phase.  With ``--profile`` a
    second burst of fresh greedy prompts runs under ``torch.profiler``
    and the device's busy share, the top device kernels and the top host
    operators are printed.
@@ -91,12 +101,28 @@ Phases:
    prefill chunk) twice on the same inputs — through the kernels, and
    through the plain versions (``use_kernel=False``); the logits must agree
    within 5e-2 * max|logit| (bf16 rounding over 32 layers).
-6. ``spec``: speculative decoding.  (a) fp32 at Llama-2-7B width and 4
+6. ``kvq``: quantized KV pages.  The serve burst through the port's
+   server at ``--kv_dtype int8``, then ``fp8``, on the same full-depth
+   Llama-2-7B: every answer 200 with its lengths, K4 and K6 (counters set
+   to 0 just before) launched on ``attend_row`` over the quantized pools,
+   ``/health``'s ``kv_pool_bytes`` half the bf16 serve phase's and
+   ``kv_scale_bytes`` 2 x L x pages x nkv x 4; then one ragged tick over
+   int8 pools (the tick phase's inputs, quantized page by page) through
+   the kernels and through the plain versions, logits within 5e-2 *
+   max|logit| (the difference from the bf16 pools' tick is printed, not
+   gated), and the host and device cost of one layer's quantized write
+   beside the plain scatter.  Prints wall time, decode tokens/s and ticks
+   beside the serve phase's.
+7. ``spec``: speculative decoding.  (a) fp32 at Llama-2-7B width and 4
    layers (TF32 off): engines at ``spec_k=4`` and ``spec_k=0`` on the same
    greedy prompts must give identical tokens and log-probs within 1e-4,
    with an independent 1-layer draft (acceptance about 0: the correction
    path) and with an identity pair (a 2-layer draft, the target its
-   extension to 4 layers; acceptance >= 0.99).  (b) bf16 at full depth:
+   extension to 4 layers; acceptance >= 0.99); then the identity pair over
+   int8 and over fp8 pools, K5 launched there (counters set to 0 just
+   before the spec run) and acceptance >= 0.5 (the two models' caches
+   differ by the rounding of differently grouped writes, so tokens may
+   part: printed).  (b) bf16 at full depth:
    the target is the identity extension of a 2-layer draft; the serve
    phase's burst goes through the port's server at ``spec_k=4``
    (adaptive), then through a ``spec_k=0`` engine on the same target.
@@ -106,7 +132,7 @@ Phases:
    layers, hidden 2048, 32/4 heads: K5 at g 8, d 64) on the same target,
    one greedy burst: every answer 200, K5 launched, K4 on the tile
    routine.
-7. ``train``: the port's training entry point
+8. ``train``: the port's training entry point
    (``megatron_llm_tpu_torch.finetune.main``) on Llama-2-7B at full width
    cut to 8 of its 32 layers, seq 4096, micro batch 1,
    global batch 4 (4 microbatches accumulate), bf16 compute over fp32
@@ -119,7 +145,7 @@ Phases:
    times (8 layers x 4 microbatches x 12 steps), K1 768 (twice that:
    selective recompute).  Prints the steady step time,
    tokens/s and MFU against 989 TFLOP/s.
-8. ``train-check``: one train step of the same model at 2 layers and seq
+9. ``train-check``: one train step of the same model at 2 layers and seq
    2048, on the same weights and batch, through the flash kernels and
    through the plain attention path (``--use_flash_attn false``), in bf16
    and with fp32 weights and compute: the loss, the gradient norm and each
@@ -144,8 +170,8 @@ import traceback
 import urllib.error
 import urllib.request
 
-PHASES = ("build", "kernels", "kernel-check", "serve", "tick", "spec",
-          "train", "train-check")
+PHASES = ("build", "kernels", "kernel-check", "serve", "tick", "kvq",
+          "spec", "train", "train-check")
 
 
 def log(*a):
@@ -170,11 +196,13 @@ class RaggedCase:
     ``verify_rows`` rows on its own table (a decode row at position ctx - 1,
     or a speculative verify's K + 1 rows at ctx - K - 1 .. ctx - 1), one
     prefill chunk of ``chunk`` rows sharing one table, and ``n_dead`` dead
-    rows (null table, horizon 0)."""
+    rows (null table, horizon 0).  With ``kv_dtype`` ("int8" / "fp8") the
+    pools are quantized page by page (``ops/kv_quant.QuantPagedKV``) and
+    the bytes count one a value plus the attended pages' scales."""
 
     def __init__(self, torch, gen, dev, dtype, *, n, nkv, d=128, page=16,
                  contexts, chunk_start, chunk=64, n_dead=8, window=None,
-                 verify_rows=1):
+                 verify_rows=1, kv_dtype=None):
         self.n, self.nkv, self.d, self.page = n, nkv, d, page
         self.window = window
         W = 2048 // page
@@ -217,24 +245,36 @@ class RaggedCase:
                              dtype=torch.float32).to(dtype)
         self.q = torch.randn((R, 1, n, d), generator=gen, device=dev,
                              dtype=torch.float32).to(dtype)
+        if kv_dtype is not None:
+            from megatron_llm_tpu_torch.ops import kv_quant
+
+            self.k, self.v = (kv_quant.quantize_pages(t.float(), kv_dtype)
+                              for t in (self.k, self.v))
         ns = len(contexts) * verify_rows    # the slots' rows
         # the chunk as a prefill call: [1, chunk, n, d] at chunk_start
         self.pre_q = self.q[ns:ns + chunk].reshape(1, chunk, n, d).contiguous()
         self.pre_bt = self.tables[-1:, :npg].contiguous()
         self.pre_start = torch.tensor([chunk_start], **i32)
         self.scale = 1.0 / d ** 0.5
-        # work this data needs: pages each table's rows attend, once
+        # work this data needs: pages each table's rows attend, once (a
+        # quantized pool: one byte a value, and 4 bytes of scale a (page,
+        # kv head) of K and of V)
         esz = self.q.element_size()
-        attended_tokens = sum(contexts) + end
+        kv_esz = esz if kv_dtype is None else 1
+        scale_bytes = 0 if kv_dtype is None else 2 * nkv * 4
+
+        def kv_bytes(ctxs):
+            return sum(2 * c * nkv * d * kv_esz
+                       + -(-c // page) * scale_bytes for c in ctxs)
+
         self.ragged_bytes = (2 * self.q.numel() * esz
-                             + 2 * attended_tokens * nkv * d * esz
+                             + kv_bytes(list(contexts) + [end])
                              + 4 * (self.tables.numel() + 3 * R))
         ctx_per_row = [p + 1 for p in rows_pos[:len(rows_pos) - n_dead]]
         if window:
             ctx_per_row = [min(c, window) for c in ctx_per_row]
         self.ragged_flops = 4.0 * n * d * sum(ctx_per_row)
-        self.prefill_bytes = (2 * self.pre_q.numel() * esz
-                              + 2 * end * nkv * d * esz
+        self.prefill_bytes = (2 * self.pre_q.numel() * esz + kv_bytes([end])
                               + 4 * (self.pre_bt.numel() + 1))
         self.prefill_flops = 4.0 * n * d * sum(ctx_per_row[ns:])
         # each slot's last row as one K5 call: each row through its own table
@@ -248,7 +288,7 @@ class RaggedCase:
         self.dec_idx = torch.arange(nd, **i32)
         self.dec_hor = (self.dec_pos // 64 + 1) * 64
         self.decode_bytes = (2 * self.dec_q.numel() * esz
-                             + 2 * sum(contexts) * nkv * d * esz
+                             + kv_bytes(contexts)
                              + 4 * (self.dec_bt.numel() + nd))
         self.decode_flops = 4.0 * n * d * sum(ctx_per_row[last])
 
@@ -497,8 +537,135 @@ def phase_kernels(dev, report, args):
                 work=(tick.ragged_bytes, tick.ragged_flops))
     del full, verify, tick
     prefill_shapes(torch, gen, dev, rows["paged_prefill"])
+    quantized_paged_kernels(torch, gen, dev, cases, rows)
     flash_kernels(dev, report)
     rmsnorm_kernels(dev, report)
+
+
+# the quantized pools' cases: the serving path's shapes (contexts to 2048),
+# GQA 32/8, a window and the TinyLlama draft's 32/4 heads at d 64 (a lane
+# reads 2 bytes of a page row there)
+QUANT_CASES = ("llama2-7b", "gqa-32/8", "window-100", "gqa-32/4-d64")
+KV_QUANT = ("int8", "fp8")
+
+
+def _quant_agree(torch, ker, ref, dtype):
+    """``(ok, max abs err, norm-relative err)`` of a kernel's output
+    against its plain version: fp32 atol 1e-5; bf16 atol = rtol = 1e-2 and
+    a norm-relative error of at most 1e-2."""
+    from megatron_llm_tpu_torch.tools.kernel_check import norm_rel
+    from megatron_llm_tpu_torch.tools.prefill_shapes import NORM_BAR
+
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
+    err = (ker.float() - ref.float()).abs()
+    rel = norm_rel(ker, ref)
+    ok = bool((err <= atol + rtol * ref.float().abs()).all()) and bool(
+        torch.isfinite(ker.float()).all())
+    if dtype != torch.float32:
+        ok = ok and rel <= NORM_BAR
+    return ok, float(err.max()), rel
+
+
+def quantized_paged_kernels(torch, gen, dev, cases, rows):
+    """K4, K5 and K6 over int8 and fp8 e4m3 pools (``attend_row`` reads
+    the one-byte pages and their scales): each held to its plain version
+    (which dequantizes the gathered pages in fp32) in fp32 and bf16 at the
+    ``QUANT_CASES`` shapes; dead rows exact zeros, K5 bitwise K4 on the
+    same rows, two launches the same bits, the routine ``rows``, and every
+    kernel with its pages' scales 10% off failing the bf16 bar.  Then each
+    is timed at the serving path's shape in bf16 beside its bound at the
+    quantized bytes: into ``rows`` as ``<kernel>_<kv_dtype>``."""
+    from megatron_llm_tpu_torch.ops import kernels, kv_quant
+    from megatron_llm_tpu_torch.tools.kernel_check import (
+        bound,
+        cuda_ms,
+        device_ms,
+        host_us,
+    )
+
+    wrappers = {"paged_ragged": kernels.paged_ragged_kernel,
+                "paged_decode": kernels.paged_decode_kernel,
+                "paged_prefill": kernels.paged_prefill_kernel}
+    worst = {}
+    for kv in KV_QUANT:
+        for name in QUANT_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                case = RaggedCase(torch, gen, dev, dtype, kv_dtype=kv,
+                                  **cases[name])
+                dec, dec_k4 = case.decode(True), case.decode_as_ragged()
+                torch.cuda.synchronize()
+                if not torch.equal(dec, dec_k4):
+                    raise AssertionError(
+                        f"paged_decode differs from paged_ragged on the same "
+                        f"rows ({name} {kv} {dtype})")
+                good = (case.k, case.v)
+                off = tuple(kv_quant.QuantPagedKV(p.q, p.scale * 1.1)
+                            for p in good)
+                for kname, fn in (("paged_ragged", case.ragged),
+                                  ("paged_decode", case.decode),
+                                  ("paged_prefill", case.prefill)):
+                    ker, again = fn(True), fn(True)
+                    path = wrappers[kname].last_path
+                    ref = fn(False)
+                    case.k, case.v = off
+                    planted = fn(True)
+                    case.k, case.v = good
+                    torch.cuda.synchronize()
+                    ok, max_err, rel = _quant_agree(torch, ker, ref, dtype)
+                    if kname == "paged_ragged":
+                        ok = ok and bool((ker[-case.n_dead:] == 0).all())
+                    caught = not _quant_agree(torch, planted, ref,
+                                              torch.bfloat16)[0]
+                    log(f"  {kname:13s} {name:13s} {kv:4s} {str(dtype):14s} "
+                        f"max_abs_err={max_err:.3e} norm_rel={rel:.2e} "
+                        f"{'ok' if ok else 'FAIL'}; same bits twice "
+                        f"{torch.equal(ker, again)}; {path}; scales 10% off "
+                        f"caught {caught}")
+                    if not ok or not torch.equal(ker, again) or \
+                            path != "rows" or not caught:
+                        raise AssertionError(
+                            f"{kname} over a {kv} pool on {name} {dtype}: "
+                            f"agrees {ok} (max abs err {max_err}, "
+                            f"norm-relative {rel}), same bits twice "
+                            f"{torch.equal(ker, again)}, routine {path}, "
+                            f"planted fault caught {caught}")
+                    if name == "llama2-7b" and dtype == torch.bfloat16:
+                        worst[kname, kv] = max_err
+                del case
+    for kv in KV_QUANT:
+        case = RaggedCase(torch, gen, dev, torch.bfloat16, kv_dtype=kv,
+                          **cases["llama2-7b"])
+        for kname, fn, nbytes, flops in (
+                ("paged_ragged", case.ragged, case.ragged_bytes,
+                 case.ragged_flops),
+                ("paged_decode", case.decode, case.decode_bytes,
+                 case.decode_flops),
+                ("paged_prefill", case.prefill, case.prefill_bytes,
+                 case.prefill_flops)):
+            ms_plain_1 = cuda_ms(lambda: fn(False))
+            ms_k_1 = cuda_ms(lambda: fn(True))
+            ms_k_2 = cuda_ms(lambda: fn(True))
+            ms_plain_2 = cuda_ms(lambda: fn(False))
+            b_ms, b_by = bound(nbytes, flops, "bfloat16")
+            row = dict(ms=min(ms_k_1, ms_k_2),
+                       plain_ms=min(ms_plain_1, ms_plain_2),
+                       device_ms=device_ms(lambda: fn(True), iters=20),
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                       flops=flops,
+                       host_us=host_us(lambda: fn(True), n=HOST_CALLS),
+                       max_abs_err=worst[kname, kv],
+                       path=wrappers[kname].last_path, kv_dtype=kv)
+            rows[f"{kname}_{kv}"] = row
+            print(f"kernels: {kname} over a {kv} pool ({row['path']} "
+                  f"routine), bf16 q at the serving shape: kernel "
+                  f"{ms_k_1:.4f}/{ms_k_2:.4f} ms by events (device "
+                  f"{row['device_ms']:.4f} ms, host {row['host_us']:.1f} us "
+                  f"a launch), plain {ms_plain_1:.4f}/{ms_plain_2:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP), "
+                  f"{100 * b_ms / row['device_ms']:.1f}% of it on the "
+                  f"device", flush=True)
+        del case
 
 
 def prefill_shapes(torch, gen, dev, k6):
@@ -1027,6 +1194,12 @@ def _burst(port: int, bodies):
     return results, time.time() - t0
 
 
+def _health(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
 def serve_bodies(rng, vocab: int, new_tokens: int = NEW_TOKENS,
                  greedy_only: bool = False):
     """The serve burst: one prompt of each of ``PROMPT_LENS`` tokens drawn
@@ -1171,6 +1344,19 @@ def _assert_k4_tile(where: str, wrappers=("paged_ragged_kernel",)) -> None:
                                  f"{where}, not the tile routine")
 
 
+def serve_argv(args):
+    """The server's flags for the serve burst's model: Llama-2-7B at full
+    width (depth ``--num_layers``, default all 32), random bf16 weights
+    from ``--seed``, NullTokenizer, an ephemeral port."""
+    argv = ["--model_name", "llama2-7b", "--random_init",
+            "--tokenizer_type", "NullTokenizer", "--vocab_size", "32000",
+            "--params_dtype", "bfloat16", "--seed", str(args.seed),
+            "--device", "cuda", "--port", "0"]
+    if args.num_layers:
+        argv += ["--num_layers", str(args.num_layers)]
+    return argv
+
+
 def phase_serve(dev, report, args):
     import numpy as np
     import torch
@@ -1179,14 +1365,8 @@ def phase_serve(dev, report, args):
     from megatron_llm_tpu_torch.tools.run_text_generation_server import (
         build_server)
 
-    argv = ["--model_name", "llama2-7b", "--random_init",
-            "--tokenizer_type", "NullTokenizer", "--vocab_size", "32000",
-            "--params_dtype", "bfloat16", "--seed", str(args.seed),
-            "--device", "cuda", "--port", "0"]
-    if args.num_layers:
-        argv += ["--num_layers", str(args.num_layers)]
     t0 = time.time()
-    server, _ = build_server(argv)
+    server, _ = build_server(serve_argv(args))
     torch.cuda.synchronize()
     engine = server.engine
     m = engine.cfg.model
@@ -1208,6 +1388,7 @@ def phase_serve(dev, report, args):
         kinds = {kind: list(c) for kind, c in kinds.items()}
         ttft = sorted(engine.recent_ttft_s)
         ticks = engine.ticks
+        health = _health(port)
         if args.profile:   # a second burst of fresh greedy prompts
             profile = _profiled_burst(port, [
                 {"prompts": [" ".join(map(str, rng.integers(
@@ -1235,7 +1416,9 @@ def phase_serve(dev, report, args):
         requests=len(bodies), generated_tokens=generated, wall_s=wall,
         decode_tokens_per_s=generated / wall,
         ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
-        ticks=ticks, latency_max_s=max(r[2] for r in results))
+        ticks=ticks, latency_max_s=max(r[2] for r in results),
+        kv_dtype=health["kv_dtype"], kv_pool_bytes=health["kv_pool_bytes"],
+        kv_scale_bytes=health["kv_scale_bytes"])
     print(f"serve: {len(bodies)} concurrent PUT /api, {generated} tokens in "
           f"{wall:.3f} s: decode {generated / wall:.2f} tokens/s", flush=True)
     print(f"serve: TTFT p50 {ttft[len(ttft) // 2]:.3f} s, max "
@@ -1259,56 +1442,75 @@ def phase_serve(dev, report, args):
 # ---------------------------------------------------------------------------
 
 
+TICK_CONTEXTS = [2000, 1500, 1024, 700, 333, 129, 64, 17]
+TICK_CHUNK_START, TICK_CHUNK, TICK_DEAD = 512, 64, 4
+
+
+def _tick_inputs(torch, m, dev, dtype, seed):
+    """One ragged tick of model config ``m``: decode rows at
+    ``TICK_CONTEXTS``, a 64-row prefill chunk at 512 and dead rows, with
+    random tokens and random pools in ``dtype`` from ``seed``.  Returns
+    ``(paged, tokens, k_pool, v_pool)``."""
+    from megatron_llm_tpu_torch.ops.paged_attention import PagedState
+
+    page, W = 16, 2048 // 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    chunk_start, chunk, n_dead = TICK_CHUNK_START, TICK_CHUNK, TICK_DEAD
+    tables = [[0] * W]
+    nxt = 1
+    for ctx in TICK_CONTEXTS + [chunk_start + chunk]:
+        npg = -(-ctx // page)
+        tables.append(list(range(nxt, nxt + npg)) + [0] * (W - npg))
+        nxt += npg
+    pos = ([c - 1 for c in TICK_CONTEXTS]
+           + list(range(chunk_start, chunk_start + chunk)) + [0] * n_dead)
+    idx = (list(range(1, 1 + len(TICK_CONTEXTS)))
+           + [len(tables) - 1] * chunk + [0] * n_dead)
+    hor = [((p // 64) + 1) * 64 for p in pos[:-n_dead]] + [0] * n_dead
+    i32 = dict(dtype=torch.int32, device=dev)
+    paged = PagedState(torch.tensor(tables, **i32), torch.tensor(pos, **i32),
+                       torch.tensor(hor, **i32), torch.tensor(idx, **i32))
+    tokens = torch.randint(1, m.vocab_size, (len(pos), 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    shape = (m.num_layers, nxt, page, m.num_attention_heads_kv, m.kv_channels)
+    pk0 = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    pv0 = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    return paged, tokens, pk0, pv0
+
+
+def _tick_logits(torch, cfg, params, paged, tokens, pools):
+    """The tick's logits (fp32) through ``cfg``'s attention path; the
+    pools are written in place."""
+    from megatron_llm_tpu_torch.models.language_model import model_forward
+
+    with torch.no_grad():
+        logits, _ = model_forward(cfg, params, tokens,
+                                  position_ids=paged.positions[:, None],
+                                  kv_caches=pools, paged=paged)
+    torch.cuda.synchronize()
+    return logits.float()
+
+
 def phase_tick(dev, report, args):
     import copy
 
     import torch
 
-    from megatron_llm_tpu_torch.models.language_model import model_forward
-    from megatron_llm_tpu_torch.ops.paged_attention import PagedState
-
     cfg, params = report.pop("model")
     torch.cuda.empty_cache()
     m = cfg.model
-    page, W = 16, 2048 // 16
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed + 1)
-    contexts = [2000, 1500, 1024, 700, 333, 129, 64, 17]
-    chunk_start, chunk, n_dead = 512, 64, 4
-    tables = [[0] * W]
-    nxt = 1
-    for ctx in contexts + [chunk_start + chunk]:
-        npg = -(-ctx // page)
-        tables.append(list(range(nxt, nxt + npg)) + [0] * (W - npg))
-        nxt += npg
-    pos = ([c - 1 for c in contexts] + list(range(chunk_start,
-                                                  chunk_start + chunk))
-           + [0] * n_dead)
-    idx = (list(range(1, 1 + len(contexts))) + [len(tables) - 1] * chunk
-           + [0] * n_dead)
-    hor = [((p // 64) + 1) * 64 for p in pos[:-n_dead]] + [0] * n_dead
-    i32 = dict(dtype=torch.int32, device=dev)
-    paged = PagedState(torch.tensor(tables, **i32), torch.tensor(pos, **i32),
-                       torch.tensor(hor, **i32), torch.tensor(idx, **i32))
-    R = len(pos)
-    tokens = torch.randint(1, m.vocab_size, (R, 1), generator=gen,
-                           device=dev, dtype=torch.int32)
-    shape = (m.num_layers, nxt, page, m.num_attention_heads_kv, m.kv_channels)
+    contexts, chunk, n_dead = TICK_CONTEXTS, TICK_CHUNK, TICK_DEAD
     dtype = params["embedding"]["word_embeddings"].dtype
-    pk0 = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
-    pv0 = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    paged, tokens, pk0, pv0 = _tick_inputs(torch, m, dev, dtype,
+                                           args.seed + 1)
+    R = tokens.shape[0]
     plain_cfg = copy.deepcopy(cfg)
     plain_cfg.training.use_flash_attn = False   # use_kernel=False
     out = {}
     for name, c in (("kernel", cfg), ("plain", plain_cfg)):
-        pools = (pk0.clone(), pv0.clone())
-        with torch.no_grad():
-            logits, _ = model_forward(c, params, tokens,
-                                      position_ids=paged.positions[:, None],
-                                      kv_caches=pools, paged=paged)
-        torch.cuda.synchronize()
-        out[name] = logits.float()
-        del pools
+        out[name] = _tick_logits(torch, c, params, paged, tokens,
+                                 (pk0.clone(), pv0.clone()))
     k, p = out["kernel"], out["plain"]
     if tuple(k.shape[:2]) != (R, 1) or k.shape[-1] < m.vocab_size:
         raise AssertionError(f"logits shape {tuple(k.shape)}")
@@ -1338,14 +1540,8 @@ def phase_tick(dev, report, args):
         c32 = copy.deepcopy(cfg)
         c32.training.params_dtype = "float32"
         c32.training.use_flash_attn = use_kernel
-        pools = (pk0.float(), pv0.float())
-        with torch.no_grad():
-            logits, _ = model_forward(c32, params32, tokens,
-                                      position_ids=paged.positions[:, None],
-                                      kv_caches=pools, paged=paged)
-        torch.cuda.synchronize()
-        out[name] = logits
-        del pools
+        out[name] = _tick_logits(torch, c32, params32, paged, tokens,
+                                 (pk0.float(), pv0.float()))
     err32 = float((out["kernel"] - out["plain"]).abs().max())
     lim32 = 1e-3 * float(out["plain"].abs().max())
     print(f"tick fp32: max |kernel - plain| logit {err32:.3e}, bound "
@@ -1357,7 +1553,226 @@ def phase_tick(dev, report, args):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: speculative decoding through the port's engine and server
+# phase 6: quantized KV pages (--kv_dtype int8 / fp8) through the server
+# ---------------------------------------------------------------------------
+
+
+def _served_kv_run(args, kv_dtype):
+    """The serve burst through the port's server at ``--kv_dtype``, on the
+    serve phase's model (the same argv and seed): returns ``(summary,
+    (cfg, params))``; the K4 and K6 launches are the burst's alone
+    (counters set to 0 just before) and must be on ``rows``."""
+    import numpy as np
+    import torch
+
+    from megatron_llm_tpu_torch.ops import kernels, kv_quant
+    from megatron_llm_tpu_torch.tools.run_text_generation_server import (
+        build_server)
+
+    server, _ = build_server(serve_argv(args) + ["--kv_dtype", kv_dtype])
+    engine = server.engine
+    if not (engine.kv_dtype == kv_dtype
+            and kv_quant.is_quantized(engine.pool.k)):
+        raise AssertionError(f"--kv_dtype {kv_dtype} did not reach the pool")
+    port = server.start_background("127.0.0.1", 0)
+    prompts, bodies = serve_bodies(np.random.default_rng(args.seed),
+                                   engine.cfg.model.vocab_size)
+    try:
+        kernels.reset_launch_counts()
+        results, wall = _burst(port, bodies)
+        launches = kernels.launch_counts()
+        paths = (kernels.paged_ragged_kernel.last_path,
+                 kernels.paged_prefill_kernel.last_path)
+        ticks = engine.ticks
+        ttft = sorted(engine.recent_ttft_s)
+        health = _health(port)
+    finally:
+        server.stop()
+    generated = check_answers(results, prompts, bodies)
+    launches = {w: launches[w] for w in ("paged_ragged_kernel",
+                                         "paged_prefill_kernel")}
+    if min(launches.values()) <= 0 or paths != ("rows", "rows"):
+        raise AssertionError(f"{kv_dtype} burst: launches {launches}, "
+                             f"routines {paths}")
+    m = engine.cfg.model
+    values = (2 * m.num_layers * engine.pool.num_pages * engine.page_size
+              * m.num_attention_heads_kv * m.kv_channels)
+    scales = 2 * m.num_layers * engine.pool.num_pages \
+        * m.num_attention_heads_kv * 4
+    if (health["kv_dtype"], health["kv_pool_bytes"],
+            health["kv_scale_bytes"]) != (kv_dtype, values, scales):
+        raise AssertionError(f"{kv_dtype} /health {health}: want "
+                             f"{values} value bytes, {scales} scale bytes")
+    summary = dict(requests=len(bodies), generated_tokens=generated,
+                   wall_s=wall, decode_tokens_per_s=generated / wall,
+                   ticks=ticks, ttft_p50_s=ttft[len(ttft) // 2],
+                   kv_pool_bytes=health["kv_pool_bytes"],
+                   kv_scale_bytes=health["kv_scale_bytes"],
+                   bf16_pool_bytes=2 * values, launches=launches)
+    model = (engine.cfg, engine.params)
+    engine.pool = None
+    del server, engine
+    torch.cuda.empty_cache()
+    return summary, model
+
+
+def _kernel_launches(torch, fn) -> int:
+    """Kernels one call of ``fn`` launches: the CUDA runtime's launch calls
+    on the host, as ``torch.profiler`` records them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+
+
+def _write_cost(torch, dev, paged, pool, m) -> dict:
+    """One layer's K write of the tick's rows (bf16 values) into a
+    quantized pool (``kv_quant.paged_write``: scale update, requantize,
+    token write) and into a plain bf16 pool (one scatter): host µs a call,
+    CUDA-event and device ms, and the kernels a call launches."""
+    from megatron_llm_tpu_torch.ops import kv_quant
+    from megatron_llm_tpu_torch.tools.kernel_check import (
+        cuda_ms,
+        device_ms,
+        host_us,
+    )
+
+    page = kv_quant.page_size_of(pool)
+    pos = paged.positions.long()
+    tables = paged.block_tables[paged.table_index.long()].long()
+    slot = torch.clamp(pos // page, 0, tables.shape[1] - 1)[:, None]
+    page_ids, offs = torch.gather(tables, 1, slot), (pos % page)[:, None]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    vals = torch.randn((pos.shape[0], 1, m.num_attention_heads_kv,
+                        m.kv_channels), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    quant = kv_quant.layer(pool, 0)
+    plain = torch.zeros(quant.q.shape, dtype=torch.bfloat16, device=dev)
+    out = {}
+    for name, target in (("int8", quant), ("bf16", plain)):
+        def fn(target=target):
+            kv_quant.paged_write(target, page_ids, offs, vals)
+
+        out[name] = dict(host_us=host_us(fn, n=HOST_CALLS), ms=cuda_ms(fn),
+                         device_ms=device_ms(fn),
+                         kernels=_kernel_launches(torch, fn))
+    q, b = out["int8"], out["bf16"]
+    print(f"kvq write: one layer's K write of the tick's {pos.shape[0]} rows:"
+          f" int8 pool {q['host_us']:.1f} us host a call, {q['ms']:.4f} ms "
+          f"by events, {q['device_ms']:.4f} ms on the device, {q['kernels']} "
+          f"kernels; bf16 pool {b['host_us']:.1f} us, {b['ms']:.4f} ms, "
+          f"{b['device_ms']:.4f} ms, {b['kernels']} kernels", flush=True)
+    return out
+
+
+def phase_kvq(dev, report, args):
+    """The serve burst at ``--kv_dtype int8``, then ``fp8``, through the
+    port's server on the full-depth Llama-2-7B (K4 and K6 on ``rows`` over
+    the quantized pools; ``/health`` value bytes half a bf16 pool's, and
+    the scale bytes), then one ragged tick over int8 pools through the
+    kernels and through the plain versions."""
+    import copy
+    import gc
+
+    import torch
+
+    from megatron_llm_tpu_torch.ops import kernels, kv_quant
+
+    report.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    model = None
+    for kv in KV_QUANT:
+        out[kv], model = _served_kv_run(args, kv)
+        row = out[kv]
+        serve = report.get("serve")
+        if serve is not None and serve["kv_pool_bytes"] != \
+                row["bf16_pool_bytes"]:
+            raise AssertionError(f"{kv} pool {row['kv_pool_bytes']} bytes, "
+                                 f"the bf16 serve phase's "
+                                 f"{serve['kv_pool_bytes']}: not half")
+        beside = ("" if serve is None else
+                  f" (bf16 serve phase: {serve['wall_s']:.3f} s, "
+                  f"{serve['decode_tokens_per_s']:.2f} tokens/s, "
+                  f"{serve['ticks']} ticks, {serve['kv_pool_bytes']} pool "
+                  f"bytes)")
+        print(f"kvq serve ({kv}): {row['requests']} concurrent PUT /api, "
+              f"{row['generated_tokens']} tokens in {row['wall_s']:.3f} s: "
+              f"decode {row['decode_tokens_per_s']:.2f} tokens/s, "
+              f"{row['ticks']} ticks, TTFT p50 {row['ttft_p50_s']:.3f} s; "
+              f"/health kv_pool_bytes {row['kv_pool_bytes']}, kv_scale_bytes"
+              f" {row['kv_scale_bytes']}{beside}", flush=True)
+        print(f"kvq serve ({kv}): kernel launches on the main path "
+              f"{json.dumps(row['launches'])}, K4 and K6 on attend_row",
+              flush=True)
+        if kv != KV_QUANT[-1]:
+            model = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    report["kvq"] = out
+
+    # one ragged tick over int8 pools: kernels against the plain versions
+    cfg, params = model
+    m = cfg.model
+    paged, tokens, pk0, pv0 = _tick_inputs(torch, m, dev, torch.bfloat16,
+                                           args.seed + 1)
+    bf16 = _tick_logits(torch, cfg, params, paged, tokens,
+                        (pk0.clone(), pv0.clone()))
+    pools = [kv_quant.make_pool(pk0.shape, "int8", None, dev)
+             for _ in range(2)]
+    for pool, src in zip(pools, (pk0, pv0)):
+        for i in range(m.num_layers):
+            qp = kv_quant.quantize_pages(src[i], "int8")
+            pool.q[i].copy_(qp.q)
+            pool.scale[i].copy_(qp.scale)
+    del pk0, pv0
+
+    def clone(pool):
+        return kv_quant.QuantPagedKV(pool.q.clone(), pool.scale.clone())
+
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.training.use_flash_attn = False   # use_kernel=False
+    k4 = kernels.paged_ragged_kernel
+    n0 = k4.launches
+    ker = _tick_logits(torch, cfg, params, paged, tokens,
+                       tuple(map(clone, pools)))
+    n1 = k4.launches
+    ref = _tick_logits(torch, plain_cfg, params, paged, tokens,
+                       tuple(map(clone, pools)))
+    if n1 - n0 != m.num_layers or k4.launches != n1 or k4.last_path != "rows":
+        raise AssertionError(f"the int8 tick launched K4 {n1 - n0} times "
+                             f"through the kernels ({k4.last_path}), "
+                             f"{k4.launches - n1} through the plain path")
+    if not bool(torch.isfinite(ker).all()):
+        raise AssertionError("non-finite logits through the kernels")
+    err = float((ker - ref).abs().max())
+    lim = 5e-2 * float(ref.abs().max())
+    vs_bf16 = float((ker - bf16).abs().max())
+    R = tokens.shape[0]
+    print(f"kvq tick (int8 pools): {R} rows x {m.num_layers} layers: max "
+          f"|kernel - plain| logit {err:.4f}, bound {lim:.4f} (5e-2 * "
+          f"max|logit|); max |int8 - bf16 pools| logit {vs_bf16:.4f} "
+          f"(printed, not gated: random weights)", flush=True)
+    report["kvq"]["tick"] = dict(rows=R, max_abs_logit_err=err, bound=lim,
+                                 max_abs_logit_diff_vs_bf16=vs_bf16)
+    if not err <= lim:
+        raise AssertionError(f"int8 tick logits disagree: {err} > {lim}")
+    report["kvq"]["write"] = _write_cost(torch, dev, paged, pools[0], m)
+    del pools, ker, ref, bf16, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: speculative decoding through the port's engine and server
 # ---------------------------------------------------------------------------
 
 SPEC_K = 4
@@ -1365,7 +1780,13 @@ SPEC_CHECK_LAYERS = 4     # the fp32 check's target depth
 SPEC_CHECK_LENS = (100, 171, 242, 313)
 SPEC_CHECK_NEW = 32
 SPEC_LOGP_TOL = 1e-4      # fp32: summation order only
-SPEC_MIN_ACCEPT = {"fp32": 0.99, "bf16": 0.9}
+# quantized pools: the pair's caches differ by the rounding of differently
+# grouped writes (see _spec_fp32_check), and the reference engine rejects
+# identity-pair drafts there too (tests/test_torch_kv_quant.py, at hidden
+# 1024); the bar sits halfway between an independent draft's 0 and a plain
+# identity pair's 1, where a draft that read the wrong pages or scales
+# would fall below it
+SPEC_MIN_ACCEPT = {"fp32": 0.99, "bf16": 0.9, "quantized": 0.5}
 # TinyLlama/TinyLlama-1.1B's published shape (its config.json)
 TINYLLAMA = dict(num_layers=22, hidden_size=2048, num_attention_heads=32,
                  num_attention_heads_kv=4, ffn_hidden_size=5632,
@@ -1413,11 +1834,14 @@ def _greedy_engine_run(engine, prompts, new_tokens):
     return [r.result(timeout=600) for r in reqs], time.time() - t0
 
 
-def _spec_fp32_check(dev, args, rng):
+def _spec_fp32_check(dev, args, rng, report):
     """Part (a): spec_k = 4 against spec_k = 0 on the same greedy prompts,
     fp32 at Llama-2-7B width and 4 layers, with an independent 1-layer
-    draft (acceptance about 0: the correction path) and with the identity
-    pair (a 2-layer draft, the target its extension to 4 layers)."""
+    draft and with the identity pair (a 2-layer draft, the target its
+    extension to 4 layers), on plain pools; then the identity pair over
+    int8 and fp8 pools (tokens identical, acceptance >= 0.99, K5 launched
+    over the quantized pools: counters set to 0 just before the spec run,
+    into ``report["spec_kvq_launches"]``)."""
     import numpy as np
     import torch
 
@@ -1428,48 +1852,78 @@ def _spec_fp32_check(dev, args, rng):
     from megatron_llm_tpu_torch.generation.speculative import (
         extend_params_identity,
     )
+    from megatron_llm_tpu_torch.ops import kernels, kv_quant
 
     cfg = _llama_cfg("float32", SPEC_CHECK_LAYERS)
     prompts = [rng.integers(1, cfg.model.vocab_size, size=n).tolist()
                for n in SPEC_CHECK_LENS]
     d1cfg, d2cfg = _llama_cfg("float32", 1), _llama_cfg("float32", 2)
     d2 = _random_params(d2cfg, args.seed + 12, dev)
+    identity = "identity pair (2-layer draft, 4-layer extension)"
     pairs = {
         "independent 1-layer draft": (
             _random_params(cfg, args.seed + 10, dev),
             DraftModel(d1cfg, _random_params(d1cfg, args.seed + 11, dev))),
-        "identity pair (2-layer draft, 4-layer extension)": (
+        identity: (
             extend_params_identity(d2cfg, d2, cfg,
                                    _seeded_gen(dev, args.seed + 13)),
             DraftModel(d2cfg, d2)),
     }
     rows = {}
-    for name, (target, draft) in pairs.items():
-        kw = dict(device=dev, max_slots=4, max_seq=1024)
+    report["spec_kvq_launches"] = {}
+    runs = [(name, "bf16") for name in pairs] + [(identity, kv)
+                                                 for kv in KV_QUANT]
+    for name, kv in runs:
+        target, draft = pairs[name]
+        kw = dict(device=dev, max_slots=4, max_seq=1024, kv_dtype=kv)
         base, _ = _greedy_engine_run(
             ContinuousBatchingEngine(cfg, target, None, **kw), prompts,
             SPEC_CHECK_NEW)
         eng = ContinuousBatchingEngine(cfg, target, None, spec_k=SPEC_K,
                                        spec_draft=draft, **kw)
+        kernels.reset_launch_counts()
         spec, _ = _greedy_engine_run(eng, prompts, SPEC_CHECK_NEW)
-        same = all(a[0] == b[0] for a, b in zip(base, spec))
+        k5 = kernels.paged_decode_kernel.launches
+        # the first new token at which each prompt's two runs part (None:
+        # identical)
+        parts = [next((i for i, (x, y) in enumerate(zip(a[0], b[0]))
+                       if x != y), None) for a, b in zip(base, spec)]
+        parts = [None if i is None else i - n
+                 for i, n in zip(parts, SPEC_CHECK_LENS)]
+        same = all(i is None for i in parts)
         dlp = max(float(np.abs(np.asarray(a[1]) - np.asarray(b[1])).max())
                   for a, b in zip(base, spec)) if same else float("inf")
         stats = eng.spec_stats()
         acc = stats["acceptance_rate"]
-        print(f"spec fp32 ({name}): {len(prompts)} greedy prompts x "
+        key = name if kv == "bf16" else f"{name}, {kv} pools"
+        print(f"spec fp32 ({key}): {len(prompts)} greedy prompts x "
               f"{SPEC_CHECK_NEW} tokens, spec_k {SPEC_K} vs 0: tokens "
-              f"{'identical' if same else 'DIFFER'}, max |d logp| {dlp:.3e} "
-              f"(bound {SPEC_LOGP_TOL:g}), acceptance {acc}, tokens per "
-              f"tick {stats['tokens_per_tick']}", flush=True)
-        rows[name] = dict(tokens_identical=same, max_abs_logp_diff=dlp,
-                          acceptance_rate=acc,
-                          tokens_per_tick=stats["tokens_per_tick"])
-        if not same or not dlp <= SPEC_LOGP_TOL:
-            raise AssertionError(f"spec fp32 ({name}): tokens identical "
-                                 f"{same}, max |d logp| {dlp}")
-        if "identity" in name and not acc >= SPEC_MIN_ACCEPT["fp32"]:
-            raise AssertionError(f"spec fp32 ({name}): acceptance {acc}")
+              f"{'identical' if same else 'part at new tokens ' + str(parts)}"
+              f", max |d logp| {dlp:.3e}, acceptance {acc}, tokens per tick "
+              f"{stats['tokens_per_tick']}, K5 launches {k5}", flush=True)
+        rows[key] = dict(tokens_identical=same, parted_at=parts,
+                         max_abs_logp_diff=dlp, acceptance_rate=acc,
+                         tokens_per_tick=stats["tokens_per_tick"])
+        if kv == "bf16":
+            if not same or not dlp <= SPEC_LOGP_TOL:
+                raise AssertionError(f"spec fp32 ({key}): tokens identical "
+                                     f"{same}, max |d logp| {dlp}")
+            if name == identity and not acc >= SPEC_MIN_ACCEPT["fp32"]:
+                raise AssertionError(f"spec fp32 ({key}): acceptance {acc}")
+            continue
+        # quantized pools: a page's bytes depend on how its rows were
+        # grouped into writes (a scale that grows re-rounds what the page
+        # holds), and the draft scan writes one row a step where the verify
+        # writes K + 1 at once, so the pair's caches differ by a rounding
+        # (ops/kv_quant.py), and greedy ties at this width can part the
+        # spec and plain streams: tokens are printed, acceptance gated
+        if not acc >= SPEC_MIN_ACCEPT["quantized"]:
+            raise AssertionError(f"spec fp32 ({key}): acceptance {acc}")
+        if not (kv_quant.is_quantized(eng.pool.draft_k) and k5 > 0
+                and kernels.paged_decode_kernel.last_path == "rows"):
+            raise AssertionError(f"spec fp32 ({key}): K5 launches {k5} "
+                                 f"over {type(eng.pool.draft_k)}")
+        report["spec_kvq_launches"][kv] = {"paged_decode_kernel": k5}
         del eng, base, spec
     del pairs, d2
     return rows
@@ -1525,7 +1979,7 @@ def phase_spec(dev, report, args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed + 7)
-    out = {"fp32": _spec_fp32_check(dev, args, rng)}
+    out = {"fp32": _spec_fp32_check(dev, args, rng, report)}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1630,7 +2084,7 @@ def phase_spec(dev, report, args):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training through the port's entry point
+# phase 8: training through the port's entry point
 # ---------------------------------------------------------------------------
 
 TRAIN_ITERS = 12
@@ -1838,7 +2292,7 @@ def _profiled_train_step(cfg, result, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: one train step through the kernels and through the plain path
+# phase 9: one train step through the kernels and through the plain path
 # ---------------------------------------------------------------------------
 
 # Relative bounds on (the loss, the global gradient norm, the gradient norm
@@ -1975,18 +2429,35 @@ KERNEL_META = {
         source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_tile.cuh",
         replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:215",
         wrapper="paged_ragged_kernel", launches_from="serve_launches",
+        kv_dtype="bf16",
         library_note="no single PyTorch call reads a paged KV pool"),
     "paged_decode": dict(
         source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_tile.cuh",
         replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:61",
         wrapper="paged_decode_kernel", launches_from="spec_launches",
+        kv_dtype="bf16",
         library_note="no single PyTorch call reads a paged KV pool"),
     "paged_prefill": dict(
         source="megatron_llm_tpu_torch/ops/kernels/csrc/"
                "paged_prefill_tile.cuh",
         replaces="megatron_llm_tpu/ops/pallas/paged_attention.py:134",
         wrapper="paged_prefill_kernel", launches_from="serve_launches",
+        kv_dtype="bf16",
         library_note="no single PyTorch call reads a paged KV pool"),
+    # K4 / K5 / K6 over quantized pools: attend_row with the storage type
+    # and the pages' scales; launches from the kvq phase's bursts (K4, K6)
+    # and the spec phase's identity pair over the same pools (K5)
+    **{f"{kname}_{kv}": dict(
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_common.cuh",
+        replaces=f"megatron_llm_tpu/ops/pallas/paged_attention.py:{line}",
+        wrapper=f"{kname}_kernel",
+        launches_from=(("spec_kvq_launches", kv) if kname == "paged_decode"
+                       else ("kvq", kv, "launches")),
+        kv_dtype=kv,
+        library_note="no single PyTorch call reads a paged KV pool")
+       for kv in ("int8", "fp8")
+       for kname, line in (("paged_ragged", 215), ("paged_decode", 61),
+                           ("paged_prefill", 134))},
     "rms_norm_fwd": dict(
         source="megatron_llm_tpu_torch/ops/kernels/csrc/rmsnorm.cu",
         replaces="megatron_llm_tpu/ops/pallas/rmsnorm.py:29",
@@ -2024,6 +2495,17 @@ def print_k4_price(k4: dict, kinds: dict) -> None:
               f"({pre_ms:.4f} - {pre_b:.4f}) ms + {kinds['decode'][1]} on "
               f"decode-only ticks x ({dec_ms:.4f} - {dec_b:.4f}) ms = "
               f"{pre:.1f} + {dec:.1f} = {pre + dec:.1f} ms", flush=True)
+
+
+def _main_path_launches(report: dict, meta: dict):
+    """The launches of ``meta``'s kernel on its main path's run (None where
+    that phase did not run): ``launches_from`` names the report's entry,
+    or a path of keys into it."""
+    where = meta["launches_from"]
+    node = report
+    for key in ((where,) if isinstance(where, str) else where):
+        node = node.get(key, {})
+    return node.get(meta["wrapper"])
 
 
 def main(argv=None) -> int:
@@ -2077,7 +2559,8 @@ def main(argv=None) -> int:
     for name, fn in (("kernels", phase_kernels),
                      ("kernel-check", phase_kernel_check),
                      ("serve", phase_serve),
-                     ("tick", phase_tick), ("spec", phase_spec),
+                     ("tick", phase_tick), ("kvq", phase_kvq),
+                     ("spec", phase_spec),
                      ("train", phase_train),
                      ("train-check", phase_train_check)):
         if name not in phases or failed:
@@ -2114,8 +2597,8 @@ def main(argv=None) -> int:
             line.append({
                 "name": kname, "route": "cuda", "source": meta["source"],
                 "replaces": meta["replaces"],
-                "launches": report.get(meta["launches_from"], {}).get(
-                    meta["wrapper"]),
+                "launches": _main_path_launches(report, meta),
+                "kv_dtype": meta.get("kv_dtype"),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "kernel_ms": row["ms"], "device_ms": row["device_ms"],
                 "host_us": row["host_us"], "plain_ms": row["plain_ms"],

@@ -4,7 +4,10 @@ path runs).
 
 * **Paged KV pool** (:class:`PagedKVPool`): all in-flight sequences share
   ``[L, num_pages, page_size, nkv, d]`` tensors; a sequence owns an ordered
-  page list (its block table).  Pages are reference-counted, so several
+  page list (its block table).  ``kv_dtype`` picks the storage: ``bf16``
+  a plain pool in the compute dtype, ``int8`` / ``fp8`` one-byte pages
+  with per-page, per-kv-head scales (``ops/kv_quant.py``), for about twice
+  the pages at the same bytes.  Pages are reference-counted, so several
   sequences share the pages of a common prompt prefix.  Page 0 is the null
   page: idle rows point at it and their writes land there, never attended.
 
@@ -78,12 +81,11 @@ from megatron_llm_tpu_torch.models.language_model import (
     make_rope_cache,
     model_forward,
 )
+from megatron_llm_tpu_torch.ops import kv_quant
 from megatron_llm_tpu_torch.ops.paged_attention import PagedState
 from megatron_llm_tpu_torch.utils.device import compute_dtype, resolve_device
 
 NULL_PAGE = 0
-# pool storage modes of this slice: plain pools in the compute dtype
-PLAIN_KV_DTYPES = ("bf16", "fp32")
 
 
 def _bucket_up(n: int, bucket: int = gen.BUCKET) -> int:
@@ -100,8 +102,9 @@ def check_slice_options(cfg, *, kv_dtype="bf16", ragged=True,
                          f"(it comes with the {slice_name} slice)")
 
     par = cfg.parallel
-    if kv_dtype not in PLAIN_KV_DTYPES:
-        later(f"kv_dtype={kv_dtype!r} (quantized KV pages)", "kv_quant")
+    if kv_dtype not in kv_quant.KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {kv_quant.KV_DTYPES}, "
+                         f"got {kv_dtype!r}")
     if par.tensor_model_parallel_size > 1 or \
             par.pipeline_model_parallel_size > 1:
         later("tensor/pipeline-parallel serving (--tp/--pp > 1)",
@@ -138,18 +141,22 @@ class PagedKVPool:
     reusable by a future match, reclaimable by ``evict_hook`` when
     ``alloc`` outruns the free list).
 
-    With ``draft_cfg`` (speculative decoding) the pool also holds the
-    draft's K/V, ``draft_k``/``draft_v`` ``[L_draft, num_pages, page_size,
-    nkv_draft, d_draft]``, addressed by the same page ids."""
+    ``k``/``v`` are ``[L, num_pages, page_size, nkv, d]``: plain tensors in
+    the compute dtype for ``kv_dtype="bf16"``, ``kv_quant.QuantPagedKV``
+    containers (one-byte values and ``[L, num_pages, nkv]`` fp32 scales)
+    for ``int8`` / ``fp8``.  With ``draft_cfg`` (speculative decoding) the
+    pool also holds the draft's K/V, ``draft_k``/``draft_v`` ``[L_draft,
+    num_pages, page_size, nkv_draft, d_draft]``, addressed by the same page
+    ids and stored the same way (the draft quantizes with the target)."""
 
     def __init__(self, cfg, num_pages: int, page_size: int, *, device,
-                 draft_cfg=None):
+                 draft_cfg=None, kv_dtype: str = "bf16"):
         def pools(c):
             m = c.model
             shape = (m.num_layers, num_pages, page_size,
                      m.num_attention_heads_kv, m.kv_channels)
-            return (torch.zeros(shape, dtype=compute_dtype(c), device=device),
-                    torch.zeros(shape, dtype=compute_dtype(c), device=device))
+            return tuple(kv_quant.make_pool(shape, kv_dtype, compute_dtype(c),
+                                            device) for _ in range(2))
 
         self.k, self.v = pools(cfg)
         self.draft_k = self.draft_v = None
@@ -163,10 +170,20 @@ class PagedKVPool:
         # page 0 reserved as the null page (never allocated)
         self._free: deque = deque(range(1, num_pages))
 
+    def caches(self):
+        """The pool's caches: the target's K and V and, when speculating,
+        the draft's."""
+        return [t for t in (self.k, self.v, self.draft_k, self.draft_v)
+                if t is not None]
+
     def kv_pool_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.k, self.v, self.draft_k, self.draft_v)
-                   if t is not None)
+        """Device bytes of the KV values, target and draft caches (scales
+        apart: :meth:`kv_scale_bytes`)."""
+        return sum(kv_quant.pool_nbytes(t) for t in self.caches())
+
+    def kv_scale_bytes(self) -> int:
+        """Device bytes of the per-page scales (0 for plain pools)."""
+        return sum(kv_quant.scale_nbytes(t) for t in self.caches())
 
     @property
     def num_free(self) -> int:
@@ -455,7 +472,8 @@ class ContinuousBatchingEngine:
                      or self.max_slots * self.pages_per_seq + 1)
         self.kv_dtype = kv_dtype if kv_dtype is not None else inf.kv_dtype
         self.pool = PagedKVPool(cfg, num_pages, self.page_size,
-                                device=self.device, draft_cfg=self.draft_cfg)
+                                device=self.device, draft_cfg=self.draft_cfg,
+                                kv_dtype=self.kv_dtype)
         self.cache = (PrefixCache(self.pool, self.page_size)
                       if use_cache else None)
         self.rope = make_rope_cache(cfg, device=self.device)
@@ -562,11 +580,11 @@ class ContinuousBatchingEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: clone page ``src`` into ``dst`` in every layer,
-        in the draft's cache too (the refeed tick rewrites both)."""
-        pool = self.pool
+        in the draft's cache too (the refeed tick rewrites both); a
+        quantized page's scale rows go with its values."""
         with torch.no_grad():
-            for t in (pool.k, pool.v, pool.draft_k, pool.draft_v):
-                if t is not None:
+            for pool in self.pool.caches():
+                for t in (pool if kv_quant.is_quantized(pool) else (pool,)):
                     t[:, dst] = t[:, src]
 
     # -- request lifecycle -------------------------------------------------

@@ -109,7 +109,8 @@ def make_ragged_tick_fn(cfg, *, rope_cache=None, draft_cfg=None, spec_k=0,
     ``pre_tok``/``pre_pos``/``pre_hor`` ``[rows]``, ``pre_tables``
     ``[T_pre, W]`` (one per packed prefilling request) and ``pre_index``
     ``[rows]`` mapping each prefill row to its request's table (``-1`` =
-    dead row).  The pools are updated in place.
+    dead row).  The pools (plain tensors, or ``kv_quant.QuantPagedKV``
+    containers of one-byte values and their scales) are updated in place.
     """
     vocab = cfg.model.vocab_size
     K = spec_k

@@ -268,6 +268,7 @@ class MegatronServer:
                 page_size=eng.page_size,
                 kv_dtype=eng.kv_dtype,
                 kv_pool_bytes=eng.pool.kv_pool_bytes(),
+                kv_scale_bytes=eng.pool.kv_scale_bytes(),
             )
         # speculative decoding: depth cap, acceptance rate, tokens a tick
         info["spec"] = eng.spec_stats()

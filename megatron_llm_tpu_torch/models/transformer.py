@@ -40,6 +40,7 @@ from megatron_llm_tpu_torch.ops.activations import (
     get_mlp_activation,
 )
 from megatron_llm_tpu_torch.ops import attention as attn_ops
+from megatron_llm_tpu_torch.ops import kv_quant
 from megatron_llm_tpu_torch.ops.norms import norm
 from megatron_llm_tpu_torch.ops.paged_attention import (
     PagedState,
@@ -82,12 +83,15 @@ def split_qkv(qkv: torch.Tensor, n_heads: int, n_kv_heads: int,
 
 def _paged_attention(cfg, q, k, v, paged: PagedState, kv_cache):
     """Write this block's K/V into the pool through the block tables, then
-    attend over the tables (the serving path)."""
+    attend over the tables (the serving path).  The pools are plain
+    tensors or quantized ``kv_quant.QuantPagedKV`` containers; the write
+    goes through ``kv_quant.paged_write``, which keeps the plain pool's
+    scatter byte for byte."""
     m = cfg.model
     s = q.shape[1]
     scale = 1.0 / (m.kv_channels ** 0.5)
     pk, pv = kv_cache
-    page_size = pk.shape[1]
+    page_size = kv_quant.page_size_of(pk)
     pos = paged.positions.long()
     row_tables = paged.block_tables
     if paged.table_index is not None:
@@ -98,8 +102,8 @@ def _paged_attention(cfg, q, k, v, paged: PagedState, kv_cache):
     page_slot = torch.clamp(wpos // page_size, 0, row_tables.shape[1] - 1)
     page_ids = torch.gather(row_tables.long(), 1, page_slot)
     offs = wpos % page_size
-    pk[page_ids, offs] = k.to(pk.dtype)
-    pv[page_ids, offs] = v.to(pv.dtype)
+    kv_quant.paged_write(pk, page_ids, offs, k)
+    kv_quant.paged_write(pv, page_ids, offs, v)
     use_kernel = cfg.training.use_flash_attn
     if s == 1 and paged.horizons is not None:
         return paged_attention_ragged(
@@ -124,7 +128,8 @@ def attention_sublayer(cfg, p: Params, x: torch.Tensor, rope, position_ids,
 
     ``x`` is ``[b, s, h]`` (post input-norm).  With ``paged`` the block
     attends through the paged pool ``kv_cache`` (this layer's ``(k_pool,
-    v_pool)``, each ``[num_pages, page_size, nkv, d]``, written in place):
+    v_pool)``, each ``[num_pages, page_size, nkv, d]`` or a quantized
+    ``kv_quant.QuantPagedKV``, written in place):
     ``s == 1`` with ``paged.horizons`` set is the ragged tick, ``s == 1``
     without it a decode step (one table a row: the speculative draft's
     scan), ``s > 1`` a prefill chunk at ``paged.positions``.  Without
@@ -261,7 +266,9 @@ def transformer_forward(cfg, stacked_layers: Params, hidden: torch.Tensor, *,
     """Run the stacked layers as a loop.
 
     Serving: ``kv_caches`` is the stacked ``(k_pool, v_pool)`` pair
-    ``[L, num_pages, page_size, nkv, d]``, updated in place.  Training
+    ``[L, num_pages, page_size, nkv, d]`` (plain tensors, or quantized
+    containers whose layers :func:`kv_quant.layer` slices), updated in
+    place.  Training
     (no cache): each layer runs under ``torch.utils.checkpoint`` when
     ``cfg.parallel.recompute_granularity`` is set and autograd records —
     ``"full"`` recomputes everything, otherwise ``cfg.training.remat_policy``
@@ -284,7 +291,8 @@ def transformer_forward(cfg, stacked_layers: Params, hidden: torch.Tensor, *,
                 cfg, layer_params(stacked_layers, i), h, rope=rope,
                 position_ids=position_ids,
                 kv_cache=(None if kv_caches is None
-                          else (kv_caches[0][i], kv_caches[1][i])),
+                          else (kv_quant.layer(kv_caches[0], i),
+                                kv_quant.layer(kv_caches[1], i))),
                 paged=paged, segment_ids=segment_ids, dropout_seed=layer_seed,
                 deterministic=deterministic,
                 hidden_dropout_rate=float(rates[i]))

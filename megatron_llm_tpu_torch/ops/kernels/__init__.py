@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from megatron_llm_tpu_torch.ops.kernels import build
+from megatron_llm_tpu_torch.ops.kv_quant import QuantPagedKV
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)
@@ -65,31 +66,77 @@ def _window(sliding_window: Optional[int]) -> int:
 # comparisons and builds its message only when the test fails.
 
 
-def _check_paged(name, q, k_pool, v_pool, ints):
-    """Validate q and the pools of a paged kernel and the int32 tensors
-    ``ints`` (``(name, tensor)`` pairs); returns ``(device index, page,
-    nkv, d)``."""
+# storage codes of a paged pool (the launchers' `kv`): 0 = q's own type
+_KV_STORAGE = {torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+class PagedPools(NamedTuple):
+    """What :func:`_check_paged` found: the device index, the pools'
+    shape, their storage type and code (0: q's type; 1: int8; 2: fp8
+    e4m3) and the pointers the launchers take (scales: null for plain
+    pools)."""
+    dev: int
+    page: int
+    nkv: int
+    d: int
+    pages: int
+    pool_dtype: torch.dtype
+    kv: int
+    k: int
+    v: int
+    k_scale: Optional[int]
+    v_scale: Optional[int]
+
+
+def _check_paged(name, q, k_pool, v_pool, ints) -> PagedPools:
+    """Validate q, the pools of a paged kernel (plain tensors in q's dtype,
+    or ``ops/kv_quant.QuantPagedKV`` containers: int8 / fp8 e4m3 values
+    ``[P, page, nkv, d]`` with fp32 scales ``[P, nkv]``) and the int32
+    tensors ``ints`` (``(name, tensor)`` pairs)."""
     if not q.is_cuda:
         raise ValueError(f"{name}: q must be a CUDA tensor, got {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{name}: dtype {q.dtype} not in fp32/bf16/fp16")
     dev = q.get_device()
-    for t_name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+    quant = isinstance(k_pool, QuantPagedKV)
+    if quant != isinstance(v_pool, QuantPagedKV):
+        raise ValueError(f"{name}: k_pool and v_pool must both be plain or "
+                         f"both quantized")
+    k, v = (k_pool.q, v_pool.q) if quant else (k_pool, v_pool)
+    for t_name, t in (("k_pool", k), ("v_pool", v)):
         if t.get_device() != dev:
             raise ValueError(
                 f"{name}: {t_name} on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
+        if quant and t.dtype not in _KV_STORAGE:
+            raise ValueError(f"{name}: quantized {t_name} dtype {t.dtype} "
+                             f"not in int8/float8_e4m3fn")
+        if not quant and t.dtype != q.dtype:
             raise ValueError(
                 f"{name}: {t_name} dtype {t.dtype} != q dtype {q.dtype}")
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+    if k.dim() != 4 or k.shape != v.shape or k.dtype != v.dtype:
         raise ValueError(
             f"{name}: pools must be [pages, page_size, nkv, d] and match, "
-            f"got {tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    for t_name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+            f"got {tuple(k.shape)} {k.dtype} / {tuple(v.shape)} {v.dtype}")
+    for t_name, t in (("q", q), ("k_pool", k), ("v_pool", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {t_name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {t_name} must be 16-byte aligned")
+    pages, page, nkv, d = k.shape
+    ks = vs = None
+    if quant:
+        for t_name, t in (("k_pool.scale", k_pool.scale),
+                          ("v_pool.scale", v_pool.scale)):
+            if t.get_device() != dev:
+                raise ValueError(
+                    f"{name}: {t_name} on {t.device}, q on {q.device}")
+            if t.dtype != torch.float32 or t.shape != (pages, nkv) or \
+                    not t.is_contiguous():
+                raise ValueError(
+                    f"{name}: {t_name} must be a contiguous float32 "
+                    f"[{pages}, {nkv}] tensor, got {t.dtype} "
+                    f"{tuple(t.shape)}")
+        ks, vs = k_pool.scale.data_ptr(), v_pool.scale.data_ptr()
     for t_name, t in ints:
         if t.get_device() != dev:
             raise ValueError(
@@ -98,7 +145,6 @@ def _check_paged(name, q, k_pool, v_pool, ints):
             raise ValueError(f"{name}: {t_name} must be int32")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {t_name} must be contiguous")
-    _, page, nkv, d = k_pool.shape
     n = q.shape[-2]
     if q.shape[-1] != d:
         raise ValueError(f"{name}: q head_dim {q.shape[-1]} != pool {d}")
@@ -109,22 +155,29 @@ def _check_paged(name, q, k_pool, v_pool, ints):
     if n % nkv:
         raise ValueError(
             f"{name}: {n} heads not divisible by {nkv} kv heads")
-    return dev, page, nkv, d
+    return PagedPools(dev, page, nkv, d, pages, k.dtype,
+                      _KV_STORAGE[k.dtype] if quant else 0, k.data_ptr(),
+                      v.data_ptr(), ks, vs)
 
 
 PAGED_PATHS = ("rows", "tile")   # the K4-K6 entry points' `path` codes
 
 
-def paged_path(dtype: torch.dtype, head_dim: int) -> str:
-    """Which device routine K4, K5 and K6 run: ``"tile"`` for bf16 and
-    fp16 at head_dim 64 and 128 (K4 / K5: ``csrc/paged_tile.cuh``,
-    adjacent rows on one block table share a block and its page loads;
-    K6: ``csrc/paged_prefill_tile.cuh``, 64 (row, head) pairs of a chunk
-    share each page load on wgmma; products on the tensor cores);
-    ``"rows"`` (``csrc/paged_common.cuh``: ``attend_row``, a block per
-    row, fp32 dots) for fp32, whose products in TF32 would keep too few
-    digits, and for head_dim 256, whose accumulators do not fit the
-    registers."""
+def paged_path(dtype: torch.dtype, head_dim: int,
+               pool_dtype: Optional[torch.dtype] = None) -> str:
+    """Which device routine K4, K5 and K6 run, from q's ``dtype``, the
+    head_dim and the pool's storage type (``pool_dtype``; None: q's):
+    ``"tile"`` for bf16 and fp16 plain pools at head_dim 64 and 128 (K4 /
+    K5: ``csrc/paged_tile.cuh``, adjacent rows on one block table share a
+    block and its page loads; K6: ``csrc/paged_prefill_tile.cuh``, 64
+    (row, head) pairs of a chunk share each page load on wgmma; products
+    on the tensor cores); ``"rows"`` (``csrc/paged_common.cuh``:
+    ``attend_row``, a block per row, fp32 dots) for fp32, whose products
+    in TF32 would keep too few digits, for head_dim 256, whose accumulators
+    do not fit the registers, and for quantized pools (int8 / fp8 e4m3:
+    the tile routines' TMA maps and wgmma operands take 2-byte pages)."""
+    if pool_dtype is not None and pool_dtype != dtype:
+        return "rows"
     if dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128):
         return "tile"
     return "rows"
@@ -188,9 +241,10 @@ def paged_ragged_kernel(q, k_pool, v_pool, tables, table_index, positions,
     ``paged_ragged_kernel.last_path``); same contract as
     ``ops.paged_attention.paged_attention_ragged``."""
     name = "paged_ragged_kernel"
-    dev, page, nkv, d = _check_paged(name, q, k_pool, v_pool, (
+    pp = _check_paged(name, q, k_pool, v_pool, (
         ("tables", tables), ("table_index", table_index),
         ("positions", positions), ("horizons", horizons)))
+    dev, page, nkv, d = pp.dev, pp.page, pp.nkv, pp.d
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{name}: q must be [R, 1, n, d], got "
                          f"{tuple(q.shape)}")
@@ -205,14 +259,14 @@ def paged_ragged_kernel(q, k_pool, v_pool, tables, table_index, positions,
     out = torch.empty_like(q)
     if R == 0:
         return out
-    path = paged_path(q.dtype, d)
+    path = paged_path(q.dtype, d, pp.pool_dtype)
     W = tables.shape[1]
     ws, segs = _tile_args(path, R, n, nkv, d, W, page, q.device)
     err = _library().paged_ragged_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+        q.data_ptr(), pp.k, pp.v, pp.k_scale, pp.v_scale, tables.data_ptr(),
         table_index.data_ptr(), positions.data_ptr(), horizons.data_ptr(),
-        out.data_ptr(), R, n, nkv, d, W, page, k_pool.shape[0], float(scale),
-        _window(sliding_window), *segs, _DTYPES[q.dtype],
+        out.data_ptr(), R, n, nkv, d, W, page, pp.pages, float(scale),
+        _window(sliding_window), *segs, _DTYPES[q.dtype], pp.kv,
         PAGED_PATHS.index(path), dev, _stream(dev))
     if err:
         _launch_error(name, err)
@@ -229,8 +283,9 @@ def paged_decode_kernel(q, k_pool, v_pool, block_tables, positions, *,
     ``paged_decode_kernel.last_path``); same contract as
     ``ops.paged_attention.paged_attention_decode``."""
     name = "paged_decode_kernel"
-    dev, page, nkv, d = _check_paged(name, q, k_pool, v_pool, (
+    pp = _check_paged(name, q, k_pool, v_pool, (
         ("block_tables", block_tables), ("positions", positions)))
+    dev, page, nkv, d = pp.dev, pp.page, pp.nkv, pp.d
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{name}: q must be [b, 1, n, d], got "
                          f"{tuple(q.shape)}")
@@ -244,14 +299,14 @@ def paged_decode_kernel(q, k_pool, v_pool, block_tables, positions, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    path = paged_path(q.dtype, d)
+    path = paged_path(q.dtype, d, pp.pool_dtype)
     W = block_tables.shape[1]
     ws, segs = _tile_args(path, b, n, nkv, d, W, page, q.device)
     err = _library().paged_decode_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), pp.k, pp.v, pp.k_scale, pp.v_scale,
         block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(), b, n,
-        nkv, d, W, page, k_pool.shape[0], float(scale),
-        _window(sliding_window), *segs, _DTYPES[q.dtype],
+        nkv, d, W, page, pp.pages, float(scale),
+        _window(sliding_window), *segs, _DTYPES[q.dtype], pp.kv,
         PAGED_PATHS.index(path), dev, _stream(dev))
     if err:
         _launch_error(name, err)
@@ -314,8 +369,9 @@ def paged_prefill_kernel(q, k_pool, v_pool, block_tables, start, *,
     ``paged_prefill_kernel.last_path``); same contract as
     ``ops.paged_attention.paged_attention_prefill``."""
     name = "paged_prefill_kernel"
-    dev, page, nkv, d = _check_paged(name, q, k_pool, v_pool, (
+    pp = _check_paged(name, q, k_pool, v_pool, (
         ("block_tables", block_tables), ("start", start)))
+    dev, page, nkv, d = pp.dev, pp.page, pp.nkv, pp.d
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be [b, s, n, d]")
     b, s, n, _ = q.shape
@@ -326,7 +382,7 @@ def paged_prefill_kernel(q, k_pool, v_pool, block_tables, start, *,
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    path = paged_path(q.dtype, d)
+    path = paged_path(q.dtype, d, pp.pool_dtype)
     if path == "rows" and s > 65535:
         raise ValueError(f"{name}: at most 65535 tokens per chunk on the "
                          f"rows routine, got {s}")
@@ -334,11 +390,11 @@ def paged_prefill_kernel(q, k_pool, v_pool, block_tables, start, *,
     plan = (prefill_tile_plan(s, n, nkv, W, page, _sm_count(q.device))
             if path == "tile" else PrefillPlan(0, 0))
     err = _library().paged_prefill_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), pp.k, pp.v, pp.k_scale, pp.v_scale,
         block_tables.data_ptr(), start.data_ptr(), out.data_ptr(), b, s, n,
-        nkv, d, W, page, k_pool.shape[0], float(scale),
+        nkv, d, W, page, pp.pages, float(scale),
         _window(sliding_window), plan.seg_stages, plan.segs,
-        _DTYPES[q.dtype], PAGED_PATHS.index(path), dev, _stream(dev))
+        _DTYPES[q.dtype], pp.kv, PAGED_PATHS.index(path), dev, _stream(dev))
     if err:
         _launch_error(name, err)
     paged_prefill_kernel.launches += 1

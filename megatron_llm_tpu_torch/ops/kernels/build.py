@@ -1,7 +1,10 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
-started together, into an object for ``sm_90a``; the objects link into
+started together, into an object for ``sm_90a``; the paged-attention
+sources compile once for each pool storage code (``-DPAGED_KV=0, 1, 2``:
+plain, int8, fp8 e4m3), so each object holds one storage type's
+instantiations and the three build side by side.  The objects link into
 one shared library with a plain C interface.  The library lands in
 ``ops/kernels/_build/<hash>/`` (listed in ``.gitignore``), keyed by a
 hash of the sources and flags, so a checkout builds once and a source
@@ -20,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
@@ -51,12 +54,30 @@ def nvcc_path() -> str:
     return found
 
 
+# sources compiled once per pool storage code (csrc/paged_common.cuh: Storage)
+PAGED_SOURCES = ("paged_ragged.cu", "paged_decode.cu", "paged_prefill.cu")
+PAGED_KV_CODES = (0, 1, 2)
+
+
 def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def jobs() -> List[Tuple[Path, List[str], str]]:
+    """``(source, extra nvcc flags, object name)`` of every compile."""
+    out = []
+    for src in sources():
+        if src.name in PAGED_SOURCES:
+            out += [(src, [f"-DPAGED_KV={kv}"], f"{src.stem}.kv{kv}.o")
+                    for kv in PAGED_KV_CODES]
+        else:
+            out.append((src, [], f"{src.stem}.o"))
+    return out
+
+
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + [
+        f"{name}:{' '.join(extra)}" for _, extra, name in jobs()]).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -77,19 +98,19 @@ def build(verbose: bool = False) -> Path:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
         objs = []
-        for src in sources():
-            obj = Path(tmp) / (src.stem + ".o")
+        for src, extra, name in jobs():
+            obj = Path(tmp) / name
             objs.append(obj)
-            procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            procs.append((name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failed = []
-        for src, proc in procs:
+        for name, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"--- {src.name} ---\n{log}")
+                failed.append(f"--- {name} ---\n{log}")
             elif verbose:
-                print(f"--- nvcc {src.name} ---\n{log}", flush=True)
+                print(f"--- nvcc {name} ---\n{log}", flush=True)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / LIB_NAME
@@ -111,26 +132,27 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(verbose=verbose)))
             # every entry point ends with (device index, stream)
             tail = [_c_int, _c_void]
-            # q, k_pool, v_pool, tables, table_index, positions, horizons,
-            # out; R, n, nkv, d, W, page, pages, scale, window, seg_stages,
-            # segs, slots; the plan, (m, l) and O; dtype, path
+            # q, k_pool, v_pool, k_scale, v_scale, tables, table_index,
+            # positions, horizons, out; R, n, nkv, d, W, page, pages, scale,
+            # window, seg_stages, segs, slots; the plan, (m, l) and O;
+            # dtype, kv, path
             lib.paged_ragged_launch.argtypes = (
-                [_c_void] * 8 + [_c_int] * 7 + [ctypes.c_float]
-                + [_c_int] * 4 + [_c_void] * 3 + [_c_int] * 2 + tail)
+                [_c_void] * 10 + [_c_int] * 7 + [ctypes.c_float]
+                + [_c_int] * 4 + [_c_void] * 3 + [_c_int] * 3 + tail)
             lib.paged_ragged_launch.restype = _c_int
-            # q, k_pool, v_pool, block_tables, positions, out; b, n, nkv, d,
-            # W, page, pages, scale, window, seg_stages, segs, slots; the
-            # plan, (m, l) and O; dtype, path
+            # q, k_pool, v_pool, k_scale, v_scale, block_tables, positions,
+            # out; b, n, nkv, d, W, page, pages, scale, window, seg_stages,
+            # segs, slots; the plan, (m, l) and O; dtype, kv, path
             lib.paged_decode_launch.argtypes = (
-                [_c_void] * 6 + [_c_int] * 7 + [ctypes.c_float]
-                + [_c_int] * 4 + [_c_void] * 3 + [_c_int] * 2 + tail)
+                [_c_void] * 8 + [_c_int] * 7 + [ctypes.c_float]
+                + [_c_int] * 4 + [_c_void] * 3 + [_c_int] * 3 + tail)
             lib.paged_decode_launch.restype = _c_int
-            # q, k_pool, v_pool, block_tables, start, out; b, s, n, nkv, d,
-            # kv_pages, page, pages, scale, window, seg_stages, segs, dtype,
-            # path
+            # q, k_pool, v_pool, k_scale, v_scale, block_tables, start,
+            # out; b, s, n, nkv, d, kv_pages, page, pages, scale, window,
+            # seg_stages, segs, dtype, kv, path
             lib.paged_prefill_launch.argtypes = (
-                [_c_void] * 6 + [_c_int] * 8 + [ctypes.c_float]
-                + [_c_int] * 5 + tail)
+                [_c_void] * 8 + [_c_int] * 8 + [ctypes.c_float]
+                + [_c_int] * 6 + tail)
             lib.paged_prefill_launch.restype = _c_int
             lib.paged_error_string.argtypes = [_c_int]
             lib.paged_error_string.restype = ctypes.c_char_p

@@ -19,12 +19,27 @@
 //
 // The Pallas kernel's sequential page axis becomes each warp's loop;
 // nothing carries between blocks.
+//
+// Quantized pools (--kv_dtype int8 / fp8: ops/kv_quant.py) store K/V as
+// one byte an element (int8, or fp8 e4m3) with one fp32 scale per (page,
+// kv head).  The storage type S is a template parameter beside q's type T
+// (S == T: a plain pool).  A lane loads its D/32 storage bytes of a chunk
+// row, converts them to fp32 exactly (int8 by a cast, e4m3 by cuda_fp8.h's
+// conversion) and multiplies by the page's scale, which the warp loads once
+// per chunk (a chunk lies in one page); the fp32 online softmax after that
+// is the plain pool's.  Device memory traffic stays at the quantized bytes
+// plus 4 bytes of scale per (page, kv head): the Pallas kernels' fused
+// dequantize after the page DMA (_decode_kernel, _prefill_kernel,
+// _ragged_kernel in megatron_llm_tpu/ops/pallas/paged_attention.py).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace paged {
 
@@ -38,6 +53,8 @@ constexpr int CHUNK = 8;  // kv tokens a warp takes per step
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -54,12 +71,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// N contiguous elements of T (N * sizeof(T) in {4, 8, 16, 32} bytes,
-// aligned to min(16, that)) as raw 32-bit words.
+// N contiguous elements of T (N * sizeof(T) in {2, 4, 8, 16, 32} bytes,
+// aligned to min(16, that)) as raw 32-bit words.  Two bytes a lane is a
+// one-byte pool at head_dim 64.
 template <typename T, int N>
 struct Raw {
   static constexpr int BYTES = N * (int)sizeof(T);
-  static constexpr int WORDS = BYTES / 4;
+  static constexpr int WORDS = (BYTES + 3) / 4;
   uint32_t w[WORDS];
 
   __device__ __forceinline__ void load(const T* __restrict__ p) {
@@ -72,8 +90,11 @@ struct Raw {
     } else if constexpr (BYTES == 8) {
       const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
       w[0] = r.x; w[1] = r.y;
-    } else {
+    } else if constexpr (BYTES == 4) {
       w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      static_assert(BYTES == 2, "a lane loads 2, 4, 8 or a multiple of 16 bytes");
+      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
     }
   }
 
@@ -86,15 +107,21 @@ struct Raw {
 // q_row / out_row point at the group's first head ([ng][D], contiguous);
 // the token sits at position `pos` and attends to kv positions <= pos inside
 // the sliding window (window <= 0: none), on the pages that start below
-// `hor` (a dead row, horizon 0, touches no page and writes zeros).
+// `hor` (a dead row, horizon 0, touches no page and writes zeros).  The
+// pools hold S: T for a plain pool, int8_t or __nv_fp8_e4m3 for a quantized
+// one, whose values are scaled by k_scale / v_scale [pages][nkv] (unread
+// for a plain pool).
 // Shared memory: s_m / s_l [NWARPS][GP], s_acc [NWARPS][GP][D].
-template <typename T, int D, int GP>
+template <typename T, typename S, int D, int GP>
 __device__ void attend_row(const T* __restrict__ q_row, T* __restrict__ out_row,
-                           int ng, const T* __restrict__ k_pool,
-                           const T* __restrict__ v_pool,
+                           int ng, const S* __restrict__ k_pool,
+                           const S* __restrict__ v_pool,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
                            const int* __restrict__ table, int W, int page,
                            int nkv, int h, int pos, int hor, float scale,
                            int window, float* s_m, float* s_l, float* s_acc) {
+  constexpr bool QUANT = !std::is_same<S, T>::value;
   constexpr int DPL = D / 32;  // dims per lane
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -128,11 +155,26 @@ __device__ void attend_row(const T* __restrict__ q_row, T* __restrict__ out_row,
     const int j = c0 / page;
     const int64_t pid = table[j];
     const int64_t base = ((pid * page + (c0 - j * page)) * nkv + h) * D + lane * DPL;
-    Raw<T, DPL> kr[CHUNK], vr[CHUNK];
+    Raw<S, DPL> kr[CHUNK], vr[CHUNK];
 #pragma unroll
     for (int t = 0; t < CHUNK; ++t) kr[t].load(k_pool + base + t * tok_stride);
 #pragma unroll
     for (int t = 0; t < CHUNK; ++t) vr[t].load(v_pool + base + t * tok_stride);
+    // the chunk's page scales (a quantized pool): x = q * scale in fp32
+    float ks = 1.f, vs = 1.f;
+    if constexpr (QUANT) {
+      ks = __ldg(k_scale + pid * nkv + h);
+      vs = __ldg(v_scale + pid * nkv + h);
+    }
+    // element u of chunk row t in fp32 (a plain pool: its value as it is)
+    auto kf = [&](int t, int u) -> float {
+      if constexpr (QUANT) return kr[t].at(u) * ks;
+      else return kr[t].at(u);
+    };
+    auto vf = [&](int t, int u) -> float {
+      if constexpr (QUANT) return vr[t].at(u) * vs;
+      else return vr[t].at(u);
+    };
 
 #pragma unroll
     for (int gi = 0; gi < GP; ++gi) {
@@ -141,7 +183,7 @@ __device__ void attend_row(const T* __restrict__ q_row, T* __restrict__ out_row,
       for (int t = 0; t < CHUNK; ++t) {
         float dot = 0.f;
 #pragma unroll
-        for (int u = 0; u < DPL; ++u) dot += qr[gi][u] * kr[t].at(u);
+        for (int u = 0; u < DPL; ++u) dot += qr[gi][u] * kf(t, u);
         s[t] = warp_sum(dot);
         const int kv = c0 + t;
         const bool ok = kv <= pos && (window <= 0 || pos - kv < window);
@@ -163,7 +205,7 @@ __device__ void attend_row(const T* __restrict__ q_row, T* __restrict__ out_row,
       for (int u = 0; u < DPL; ++u) {
         float a = acc[gi][u] * alpha;
 #pragma unroll
-        for (int t = 0; t < CHUNK; ++t) a += s[t] * vr[t].at(u);
+        for (int t = 0; t < CHUNK; ++t) a += s[t] * vf(t, u);
         acc[gi][u] = a;
       }
     }
@@ -206,16 +248,34 @@ inline int heads_per_pass(int g, int d) {
   return gp;
 }
 
+// The pools' storage type S of the kernels for q's type T and a storage
+// code KV: 0 = a plain pool in T, 1 = int8, 2 = fp8 e4m3.  Each paged source
+// compiles once a code (build.py: -DPAGED_KV=0, 1, 2), so an object holds
+// one storage type's instantiations and the three build in parallel.
+template <typename T, int KV> struct Storage { using type = T; };
+template <typename T> struct Storage<T, 1> { using type = int8_t; };
+template <typename T> struct Storage<T, 2> { using type = __nv_fp8_e4m3; };
+
 }  // namespace paged
 
-// Instantiate `KERNEL<T, D, GP>` for the runtime (dtype, d, gp) and launch it
-// with `ARGS`; sets `err` (cudaErrorInvalidValue for an unsupported combo).
+#ifndef PAGED_KV
+#define PAGED_KV 0  // the storage code this object instantiates
+#endif
+#define PAGED_CAT_(a, b) a##_##b
+#define PAGED_CAT(a, b) PAGED_CAT_(a, b)
+// `name_<PAGED_KV>`: the object's own rows routine
+#define PAGED_ROWS(name) PAGED_CAT(name, PAGED_KV)
+
+// Instantiate `KERNEL<T, PAGED_KV, D, GP>` for the runtime (dtype, d, gp) and
+// launch it with `ARGS`; sets `err` (cudaErrorInvalidValue for an
+// unsupported combo).  dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q's
+// type T).
 #define PAGED_DISPATCH_GP(KERNEL, T, D, gp, grid, stream, err, ...)               \
   switch (gp) {                                                                  \
-    case 1: KERNEL<T, D, 1><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
-    case 2: KERNEL<T, D, 2><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
-    case 4: KERNEL<T, D, 4><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
-    case 8: KERNEL<T, D, 8><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
+    case 1: KERNEL<T, PAGED_KV, D, 1><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
+    case 2: KERNEL<T, PAGED_KV, D, 2><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
+    case 4: KERNEL<T, PAGED_KV, D, 4><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
+    case 8: KERNEL<T, PAGED_KV, D, 8><<<grid, paged::THREADS, 0, stream>>>(__VA_ARGS__); break; \
     default: err = cudaErrorInvalidValue;                                        \
   }
 

@@ -19,58 +19,94 @@
 // package's contract between the two kernels.
 #include "device_guard.cuh"
 #include "paged_common.cuh"
+#if PAGED_KV == 0
 #include "paged_tile.cuh"
+#endif
 
 namespace paged {
 
-template <typename T, int D, int GP>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const void* q, const void* k_pool, const void* v_pool,
-              const int* __restrict__ block_tables,
-              const int* __restrict__ positions, void* out, int n, int nkv,
-              int W, int page, float scale, int window) {
+// A decode launch's arguments for the rows routine.
+struct DecodeRows {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;  // [pages][nkv] (quantized pools)
+  const float* v_scale;
+  const int* block_tables;
+  const int* positions;
+  void* out;
+  int n, nkv, W, page;
+  float scale;
+  int window;
+};
+
+template <typename T, int KV, int D, int GP>
+__global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeRows a) {
   if constexpr (D == 256 && GP == 8) {
     return;  // never launched: heads_per_pass caps GP at 4 for D = 256
   } else {
+    using S = typename Storage<T, KV>::type;
     __shared__ float s_m[NWARPS * GP], s_l[NWARPS * GP];
     __shared__ float s_acc[NWARPS * GP * D];
     const int row = blockIdx.x;
     const int h = blockIdx.y;
-    const int g = n / nkv;
-    const int* table = block_tables + (int64_t)row * W;
-    const int64_t head0 = ((int64_t)row * n + (int64_t)h * g) * D;
+    const int g = a.n / a.nkv;
+    const int* table = a.block_tables + (int64_t)row * a.W;
+    const int64_t head0 = ((int64_t)row * a.n + (int64_t)h * g) * D;
     for (int g0 = 0; g0 < g; g0 += GP) {
-      attend_row<T, D, GP>(
-          static_cast<const T*>(q) + head0 + (int64_t)g0 * D,
-          static_cast<T*>(out) + head0 + (int64_t)g0 * D, min(GP, g - g0),
-          static_cast<const T*>(k_pool), static_cast<const T*>(v_pool), table,
-          W, page, nkv, h, positions[row], W * page, scale, window, s_m, s_l,
-          s_acc);
+      attend_row<T, S, D, GP>(
+          static_cast<const T*>(a.q) + head0 + (int64_t)g0 * D,
+          static_cast<T*>(a.out) + head0 + (int64_t)g0 * D, min(GP, g - g0),
+          static_cast<const S*>(a.k_pool), static_cast<const S*>(a.v_pool),
+          a.k_scale, a.v_scale, table, a.W, a.page, a.nkv, h,
+          a.positions[row], a.W * a.page, a.scale, a.window, s_m, s_l, s_acc);
     }
   }
 }
 
+// The rows routine over pools of storage code 0, 1 or 2 (one per object).
+cudaError_t decode_rows_0(const DecodeRows&, int b, int d, int dtype,
+                          cudaStream_t);
+cudaError_t decode_rows_1(const DecodeRows&, int b, int d, int dtype,
+                          cudaStream_t);
+cudaError_t decode_rows_2(const DecodeRows&, int b, int d, int dtype,
+                          cudaStream_t);
+
+cudaError_t PAGED_ROWS(decode_rows)(const DecodeRows& a, int b, int d,
+                                    int dtype, cudaStream_t st) {
+  const dim3 grid(b, a.nkv);
+  const int gp = heads_per_pass(a.n / a.nkv, d);
+  cudaError_t err = cudaSuccess;
+  PAGED_DISPATCH(decode_kernel, dtype, d, gp, grid, st, err, a)
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace paged
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; path: 0 = rows, 1 = tile
-// (bf16 / fp16 at d 64 / 128 only); pages: the pools' page count;
-// seg_stages, segs, slots, the plan and the workspace: the tile path's
-// (paged_tile.cuh: Args); device: the tensors' device.  Returns a
-// cudaError_t.
+#if PAGED_KV == 0
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; kv: the pools' storage, 0 =
+// q's type, 1 = int8, 2 = fp8 e4m3 (k_scale / v_scale [pages][nkv] fp32;
+// rows only); path: 0 = rows, 1 = tile (bf16 / fp16 plain pools at d 64 /
+// 128 only); pages: the pools' page count; seg_stages, segs, slots, the
+// plan and the workspace: the tile path's (paged_tile.cuh: Args); device:
+// the tensors' device.  Returns a cudaError_t.
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
-                                   const void* v_pool,
+                                   const void* v_pool, const void* k_scale,
+                                   const void* v_scale,
                                    const void* block_tables,
                                    const void* positions, void* out, int b,
                                    int n, int nkv, int d, int W, int page,
                                    int pages, float scale, int window,
                                    int seg_stages, int segs, int slots,
                                    void* plan, void* ws_ml, void* ws_o,
-                                   int dtype, int path, int device,
+                                   int dtype, int kv, int path, int device,
                                    void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 1) {
+    if (kv != 0) return (int)cudaErrorInvalidValue;  // tile: plain pools
     paged::tile::Args a{};
     a.q = q;
     a.out = out;
@@ -86,13 +122,15 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
     a.scale = scale;
     return (int)paged::tile::launch(a, k_pool, v_pool, d, dtype, st);
   }
-  const dim3 grid(b, nkv);
-  const int gp = paged::heads_per_pass(n / nkv, d);
-  cudaError_t err = cudaSuccess;
-  PAGED_DISPATCH(paged::decode_kernel, dtype, d, gp, grid, st, err, q, k_pool,
-                 v_pool, static_cast<const int*>(block_tables),
-                 static_cast<const int*>(positions), out, n, nkv, W, page,
-                 scale, window)
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const paged::DecodeRows a{
+      q, k_pool, v_pool, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(block_tables),
+      static_cast<const int*>(positions), out, n, nkv, W, page, scale, window};
+  switch (kv) {
+    case 0: return (int)paged::decode_rows_0(a, b, d, dtype, st);
+    case 1: return (int)paged::decode_rows_1(a, b, d, dtype, st);
+    case 2: return (int)paged::decode_rows_2(a, b, d, dtype, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
+#endif  // PAGED_KV == 0

@@ -24,6 +24,13 @@ Each function has two implementations with the same contract:
   to the query dtype).  The CPU tests use them, and ``chip_smoke.py``
   holds the kernels against them on the card.
 
+The pools are plain tensors in q's dtype, or quantized pools
+(``ops/kv_quant.QuantPagedKV``: int8 / fp8 e4m3 pages with one fp32
+scale per (page, kv head), ``--kv_dtype int8|fp8``).  The kernels read
+the one-byte pages and their scales themselves, on ``attend_row``; the
+plain versions dequantize the gathered pages in fp32 (``k.float() *
+scale``, the kernels' arithmetic, not rounded to q's dtype).
+
 Dispatch is keyed on the tensor's device: CPU tensors take the plain
 version; CUDA tensors launch the kernel, which raises on a shape or type
 it does not take.  ``use_kernel=False`` selects the plain version on the
@@ -37,6 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from megatron_llm_tpu_torch.ops import attention as attn_ops
+from megatron_llm_tpu_torch.ops import kv_quant
 
 
 class PagedState(NamedTuple):
@@ -60,12 +68,10 @@ class PagedState(NamedTuple):
 
 def paged_gather_kv(k_pool, v_pool, block_tables: torch.Tensor):
     """Dense ``[b, pages * page_size, nkv, d]`` view of each row's pages —
-    the gather the kernels exist to avoid."""
-    b = block_tables.shape[0]
-    nkv, d = k_pool.shape[-2], k_pool.shape[-1]
-    idx = block_tables.long()
-    return (k_pool[idx].reshape(b, -1, nkv, d),
-            v_pool[idx].reshape(b, -1, nkv, d))
+    the gather the kernels exist to avoid.  Quantized pools dequantize at
+    the gather, in fp32."""
+    return (kv_quant.dequant_gather(k_pool, block_tables),
+            kv_quant.dequant_gather(v_pool, block_tables))
 
 
 def _bias(allowed: torch.Tensor) -> torch.Tensor:
@@ -74,8 +80,8 @@ def _bias(allowed: torch.Tensor) -> torch.Tensor:
 
 def paged_attention_ragged(
     q: torch.Tensor,            # [R, 1, n_heads, d] — one query row each
-    k_pool: torch.Tensor,       # [num_pages, page_size, n_kv_heads, d]
-    v_pool: torch.Tensor,
+    k_pool: kv_quant.PagedKV,       # [num_pages, page_size, n_kv_heads, d]
+    v_pool: kv_quant.PagedKV,
     tables: torch.Tensor,       # [T, max_pages] int32 — UNIQUE tables
     table_index: torch.Tensor,  # [R] int32 — each row's table
     positions: torch.Tensor,    # [R] int32 — each row's own position
@@ -113,7 +119,7 @@ def paged_ragged_plain(q, k_pool, v_pool, tables, table_index, positions,
     are one query block against that table's gathered pages (a 64-row
     prefill chunk gathers its pages once, not 64 times)."""
     R, _, n, d = q.shape
-    page = k_pool.shape[1]
+    page = kv_quant.page_size_of(k_pool)
     out = torch.zeros_like(q)
     idx = table_index.long()
     for t in torch.unique(idx).tolist():
@@ -136,8 +142,8 @@ def paged_ragged_plain(q, k_pool, v_pool, tables, table_index, positions,
 
 def paged_attention_decode(
     q: torch.Tensor,             # [b, 1, n_heads, d] at `positions`
-    k_pool: torch.Tensor,        # [num_pages, page_size, n_kv_heads, d]
-    v_pool: torch.Tensor,
+    k_pool: kv_quant.PagedKV,        # [num_pages, page_size, n_kv_heads, d]
+    v_pool: kv_quant.PagedKV,
     block_tables: torch.Tensor,  # [b, max_pages] int32 — each row's table
     positions: torch.Tensor,     # [b] int32 — q's position; attends to <= it
     *,
@@ -184,8 +190,8 @@ def paged_decode_plain(q, k_pool, v_pool, block_tables, positions, *,
 
 def paged_attention_prefill(
     q: torch.Tensor,             # [b, s, n_heads, d] — chunk queries
-    k_pool: torch.Tensor,        # [num_pages, page_size, n_kv_heads, d]
-    v_pool: torch.Tensor,
+    k_pool: kv_quant.PagedKV,        # [num_pages, page_size, n_kv_heads, d]
+    v_pool: kv_quant.PagedKV,
     block_tables: torch.Tensor,  # [b, kv_pages] int32
     start: torch.Tensor,         # [b] int32 — position of q[:, 0]
     *,

@@ -3,6 +3,7 @@
     python -m megatron_llm_tpu_torch.tools.run_text_generation_server \\
         --model_name llama2-7b --random_init --tokenizer_type NullTokenizer \\
         --vocab_size 32000 --port 5000 [--device cuda|cpu] \\
+        [--kv_dtype int8|fp8] \\
         [--spec_k 4 --spec_draft "llama2:num_layers=2" --spec_adaptive true]
 
 Takes the flags of ``tools/run_text_generation_server.py`` (any
@@ -10,10 +11,13 @@ Takes the flags of ``tools/run_text_generation_server.py`` (any
 server runs on ``cuda`` unless ``--device cpu`` is given, and raises when
 CUDA is asked for and missing.  It serves the continuous-batching engine
 over a paged KV pool; ``--random_init`` makes seeded random weights
-(``--seed``).  ``--spec_k K --spec_draft SPEC`` serves with speculative
-decoding: a draft model built from SPEC (``family:key=val,...``, seeded
-random weights, the target's vocab) proposes up to K tokens a slot each
-tick.  Flags of features outside this slice (``--load`` of an
+(``--seed``).  ``--kv_dtype int8|fp8`` stores the KV pool (target and
+draft) in one byte an element with per-page scales (``ops/kv_quant.py``;
+default ``bf16``: a plain pool in the compute dtype); ``/health``
+reports ``kv_pool_bytes`` and ``kv_scale_bytes``.  ``--spec_k K
+--spec_draft SPEC`` serves with speculative decoding: a draft model built
+from SPEC (``family:key=val,...``, seeded random weights, the target's
+vocab) proposes up to K tokens a slot each tick.  Flags of features outside this slice (``--load`` of an
 orbax checkpoint, a ``@/ckpt`` draft, ``--legacy_engine``, router
 registration, serving roles, ``--tp``/``--pp`` > 1, ...) raise a ``ValueError`` naming the
 later slice.
@@ -96,8 +100,9 @@ def build_server(argv: Optional[List[str]] = None) -> Tuple[object, object]:
                                dtype=compute_dtype(cfg))
     inf = cfg.inference
     engine = ContinuousBatchingEngine(
-        cfg, params, tokenizer, device=device, spec_k=inf.spec_k,
-        spec_draft=inf.spec_draft, spec_adaptive=inf.spec_adaptive)
+        cfg, params, tokenizer, device=device, kv_dtype=inf.kv_dtype,
+        spec_k=inf.spec_k, spec_draft=inf.spec_draft,
+        spec_adaptive=inf.spec_adaptive)
     return MegatronServer(engine), args
 
 
@@ -106,7 +111,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     port = server.bind(args.host, args.port)
     eng = server.engine
     print(f"serving (continuous-batching, sched={eng.policy.name}, "
-          f"spec_k={eng.spec_k}, device={eng.device}) on "
+          f"kv_dtype={eng.kv_dtype}, spec_k={eng.spec_k}, "
+          f"device={eng.device}) on "
           f"http://{args.host}:{port}/api",
           flush=True)
     server.serve()

@@ -7,7 +7,8 @@ tree as nested dicts of numpy arrays (``jax.device_get(params)``) and it
 returns the same tree of tensors on ``device``, floating leaves cast to
 ``dtype`` at load: the compute dtype for serving, ``torch.float32`` for
 training's master weights.  :func:`opt_state_from_jax_numpy` carries the
-JAX package's Adam state over the same way.
+JAX package's Adam state over the same way, and :func:`kv_pool_from_jax_numpy`
+a quantized KV pool byte for byte.
 """
 
 from __future__ import annotations
@@ -39,3 +40,26 @@ def opt_state_from_jax_numpy(state: Any, device) -> Dict[str, Any]:
     return {"count": int(np.asarray(count)),
             "mu": params_from_jax_numpy(mu, device, torch.float32),
             "nu": params_from_jax_numpy(nu, device, torch.float32)}
+
+
+def kv_pool_from_jax_numpy(q: Any, scale: Any, device):
+    """A JAX ``kv_quant.QuantPagedKV`` as numpy (``q`` int8 or ml_dtypes'
+    float8_e4m3fn, ``scale`` float32) -> the port's
+    ``ops.kv_quant.QuantPagedKV`` on ``device``, byte for byte: int8 as it
+    is, e4m3 through its raw bytes (numpy has no fp8 type torch reads)."""
+    from megatron_llm_tpu_torch.ops.kv_quant import QuantPagedKV
+
+    arr = np.asarray(q)
+    if arr.dtype == np.int8:
+        values = torch.from_numpy(arr.copy())
+    elif arr.dtype.name == "float8_e4m3fn":
+        values = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    else:
+        raise ValueError(f"quantized KV values must be int8 or "
+                         f"float8_e4m3fn, got {arr.dtype}")
+    sc = np.asarray(scale)
+    if sc.dtype != np.float32:
+        raise ValueError(f"KV scales must be float32, got {sc.dtype}")
+    return QuantPagedKV(values.to(device),
+                        torch.from_numpy(sc.copy()).to(device))

@@ -187,7 +187,7 @@ def test_server_answers_put_api(models):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(spec_k=2), "speculative"),
-    (dict(kv_dtype="int8"), "kv_quant"),
+    (dict(kv_dtype="int4"), "kv_dtype"),
     (dict(sched_policy="priority"), "scheduling"),
     (dict(ragged=False), "legacy"),
     (dict(prefill_chunk=0), "legacy"),

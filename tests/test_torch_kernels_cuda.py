@@ -920,3 +920,154 @@ def test_rmsnorm_wrappers_raise_on_what_the_kernels_do_not_take():
                                        w[:255].contiguous(), 1e-6)
     with pytest.raises(ValueError, match="w on cpu"):
         pt_rms.fused_rms_norm(x, w.cpu())   # no silent move, no fallback
+
+
+# ---------------------------------------------------------------------------
+# quantized pools: int8 / fp8 e4m3 pages with per-(page, kv head) scales,
+# read by attend_row (csrc/paged_common.cuh) in all three kernels
+# ---------------------------------------------------------------------------
+
+from megatron_llm_tpu_torch.ops import kv_quant  # noqa: E402
+
+QUANT_KV = ("int8", "fp8")
+
+
+def _quantize(k, v, kv_dtype):
+    """The pools of a case, quantized page by page (fp32 in, one-byte
+    values and fp32 scales out)."""
+    return (kv_quant.quantize_pages(k.float(), kv_dtype),
+            kv_quant.quantize_pages(v.float(), kv_dtype))
+
+
+def _agree(ker, ref, dtype):
+    tol = TOL[dtype]
+    torch.testing.assert_close(ker.float(), ref.float(), atol=tol, rtol=tol)
+    if dtype != torch.float32:
+        assert norm_rel(ker, ref) <= NORM_BAR
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("g", [1, 4, 32])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+@pytest.mark.parametrize("layout", RAGGED_LAYOUTS)
+def test_quantized_ragged_matches_plain(layout, kv_dtype, dtype, d, g,
+                                        window):
+    """K4 over a quantized pool against its plain version (which
+    dequantizes the gathered pages in fp32), on ``attend_row``; dead rows
+    exact zeros; two launches give the same bits."""
+    (q, k, v, *ints), live = _on_card(ragged_layout(layout, g, d, PAGE),
+                                      dtype)
+    kq, vq = _quantize(k, v, kv_dtype)
+    pt_kernels.reset_launch_counts()
+    ker = pt_paged.paged_attention_ragged(q, kq, vq, *ints,
+                                          sliding_window=window)
+    assert pt_kernels.paged_ragged_kernel.last_path == "rows"
+    again = pt_paged.paged_attention_ragged(q, kq, vq, *ints,
+                                            sliding_window=window)
+    ref = pt_paged.paged_attention_ragged(q, kq, vq, *ints,
+                                          sliding_window=window,
+                                          use_kernel=False)
+    assert pt_kernels.paged_ragged_kernel.launches == 2
+    _agree(ker, ref, dtype)
+    assert torch.equal(ker, again)
+    assert (ker[~live] == 0).all()
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+def test_quantized_decode_matches_plain_and_ragged_bitwise(kv_dtype, dtype,
+                                                           shape, window):
+    """K5 over a quantized pool against its plain version, and bitwise K4
+    on the same rows (one device routine)."""
+    n, nkv, d = DECODE_SHAPES[shape]
+    q, k, v, tables, pos = _decode(n, nkv, d, dtype)
+    kq, vq = _quantize(k, v, kv_dtype)
+    ker = pt_paged.paged_attention_decode(q, kq, vq, tables, pos,
+                                          sliding_window=window)
+    assert pt_kernels.paged_decode_kernel.last_path == "rows"
+    ref = pt_paged.paged_attention_decode(q, kq, vq, tables, pos,
+                                          sliding_window=window,
+                                          use_kernel=False)
+    idx = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
+    ragged = pt_paged.paged_attention_ragged(
+        q, kq, vq, tables, idx, pos, (pos // 64 + 1) * 64,
+        sliding_window=window)
+    torch.cuda.synchronize()
+    _agree(ker, ref, dtype)
+    assert torch.equal(ker, ragged)
+
+
+@pytest.mark.parametrize("window", [None, 9, 100])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+@pytest.mark.parametrize("layout", list(PREFILL_LAYOUTS))
+def test_quantized_prefill_matches_plain(layout, kv_dtype, dtype, g, d,
+                                         window):
+    """K6 over a quantized pool against its plain version, on
+    ``attend_row``; two launches give the same bits."""
+    q, k, v, bt, start = _prefill(layout, g, d, dtype)
+    kq, vq = _quantize(k, v, kv_dtype)
+    ker = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
+                                           sliding_window=window)
+    assert pt_kernels.paged_prefill_kernel.last_path == "rows"
+    again = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
+                                             sliding_window=window)
+    ref = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
+                                           sliding_window=window,
+                                           use_kernel=False)
+    _agree(ker, ref, dtype)
+    assert torch.equal(ker, again)
+
+
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+def test_quantized_planted_scales_fail_the_check(kv_dtype):
+    """K4, K5 and K6 given the pages' scales 10% off must fail the bf16 bar
+    that holds them to their plain versions on the right scales."""
+    (q, k, v, tables, idx, pos, hor), _ = _on_card(
+        ragged_layout("verify", 4, 128, PAGE), torch.bfloat16)
+    kq, vq = _quantize(k, v, kv_dtype)
+    off = [kv_quant.QuantPagedKV(p.q, p.scale * PLANTED) for p in (kq, vq)]
+    ker = pt_paged.paged_attention_ragged(q, *off, tables, idx, pos, hor)
+    ref = pt_paged.paged_attention_ragged(q, kq, vq, tables, idx, pos, hor,
+                                          use_kernel=False)
+    assert norm_rel(ker, ref) > NORM_BAR
+    ker = pt_paged.paged_attention_decode(q[:5], *off, tables[idx[:5].long()],
+                                          pos[:5])
+    ref = pt_paged.paged_attention_decode(q[:5], kq, vq,
+                                          tables[idx[:5].long()], pos[:5],
+                                          use_kernel=False)
+    assert norm_rel(ker, ref) > NORM_BAR
+    qp, kp, vp, bt, start = _prefill("two-tiles", 4, 128, torch.bfloat16)
+    kq, vq = _quantize(kp, vp, kv_dtype)
+    off = [kv_quant.QuantPagedKV(p.q, p.scale * PLANTED) for p in (kq, vq)]
+    ker = pt_paged.paged_attention_prefill(qp, *off, bt, start)
+    ref = pt_paged.paged_attention_prefill(qp, kq, vq, bt, start,
+                                           use_kernel=False)
+    assert norm_rel(ker, ref) > NORM_BAR
+
+
+def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take():
+    (q, k, v, tables, idx, pos, hor), _ = _on_card(
+        ragged_layout("verify", 1, 64, PAGE), torch.bfloat16)
+    kq, vq = _quantize(k, v, "int8")
+    with pytest.raises(ValueError, match="both"):
+        pt_kernels.paged_ragged_kernel(q, kq, v, tables, idx, pos, hor,
+                                       scale=0.1)
+    with pytest.raises(ValueError, match="scale"):
+        pt_kernels.paged_ragged_kernel(
+            q, kv_quant.QuantPagedKV(kq.q, kq.scale.double()), vq, tables,
+            idx, pos, hor, scale=0.1)
+    with pytest.raises(ValueError, match="int8/float8"):
+        pt_kernels.paged_ragged_kernel(
+            q, kv_quant.QuantPagedKV(kq.q.to(torch.int16), kq.scale),
+            kv_quant.QuantPagedKV(vq.q.to(torch.int16), vq.scale), tables,
+            idx, pos, hor, scale=0.1)

@@ -10,6 +10,11 @@ the bar of the JAX package's own kernel-vs-fallback test).
 
 Dead rows (horizon 0) are exact zeros in the Pallas kernel and the port;
 the jnp fallback does not zero them, so it is compared on live rows only.
+
+Quantized pools (int8 / fp8 e4m3 pages with per-(page, kv head) scales):
+the same pools, quantized by the JAX package's ``kv_quant`` and carried
+to the port byte for byte, through all three plain versions, the Pallas
+kernels in interpret mode and the jnp fallbacks; tolerance 1e-5.
 On CPU tensors the dispatch takes the plain version and no kernel launch
 is counted.  The CUDA kernels are held against the plain versions on the
 card in ``test_torch_kernels_cuda.py``.
@@ -20,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from megatron_llm_tpu.ops import kv_quant as jax_kvq
 from megatron_llm_tpu.ops import paged_attention as jax_paged
 from megatron_llm_tpu.ops.pallas.paged_attention import (
     paged_decode_kernel as pallas_decode,
@@ -28,6 +34,7 @@ from megatron_llm_tpu.ops.pallas.paged_attention import (
 )
 from megatron_llm_tpu_torch.ops import kernels as pt_kernels
 from megatron_llm_tpu_torch.ops import paged_attention as pt_paged
+from megatron_llm_tpu_torch.weights import kv_pool_from_jax_numpy
 
 TOL = 2e-6
 N_KV, D, PAGE, W = 2, 64, 8, 6
@@ -296,3 +303,107 @@ def test_paged_path_rule(dtype, d):
     want = ("tile" if dtype != torch.float32 and d in (64, 128) else "rows")
     assert pt_kernels.paged_path(dtype, d) == want
     assert want in pt_kernels.PAGED_PATHS
+
+
+# ---------------------------------------------------------------------------
+# quantized pools (ops/kv_quant.QuantPagedKV): int8 / fp8 e4m3 pages
+# ---------------------------------------------------------------------------
+
+QTOL = 1e-5
+
+
+def _quant_pools(kp, vp, kv_dtype):
+    """The pools quantized page by page by the JAX package, as
+    ``((jax k, jax v), (port k, port v))``: the port's carried over byte
+    for byte."""
+    jk, jv = (jax_kvq.quantize_pages(jnp.asarray(p), kv_dtype)
+              for p in (kp, vp))
+    return (jk, jv), tuple(kv_pool_from_jax_numpy(np.asarray(p.q),
+                                                  np.asarray(p.scale), "cpu")
+                           for p in (jk, jv))
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_ragged_plain_matches_jax(kv_dtype, g, window):
+    """K4's plain version on a quantized pool against the Pallas
+    ``_ragged_kernel`` in interpret mode and the jnp fallback; dead rows
+    exact zeros."""
+    q, kp, vp, tables, idx, pos, hor, n_dead = _ragged_inputs(g)
+    (jk, jv), (pk, pv) = _quant_pools(kp, vp, kv_dtype)
+    scale = 1.0 / D ** 0.5
+    ours = pt_paged.paged_attention_ragged(
+        torch.from_numpy(q), pk, pv, *_t(tables, idx, pos, hor),
+        scale=scale, sliding_window=window).numpy()
+    fallback = np.asarray(jax_paged.paged_attention_ragged(
+        jnp.asarray(q), jk, jv, *_j(tables, idx, pos, hor), scale=scale,
+        sliding_window=window, use_kernel=False))
+    interp = np.asarray(pallas_ragged(
+        jnp.asarray(q), jk, jv, *_j(tables, idx, pos, hor), scale=scale,
+        sliding_window=window, interpret=True))
+    live = slice(0, len(idx) - n_dead)
+    np.testing.assert_allclose(ours[live], fallback[live], atol=QTOL,
+                               rtol=QTOL)
+    np.testing.assert_allclose(ours, interp, atol=QTOL, rtol=QTOL)
+    assert (ours[-n_dead:] == 0).all() and (interp[-n_dead:] == 0).all()
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_decode_plain_matches_jax(kv_dtype, g, window):
+    """K5's plain version on a quantized pool against the Pallas
+    ``_decode_kernel`` in interpret mode and the jnp fallback, and equal
+    to K4's plain version on the same rows."""
+    q, kp, vp, bt, pos = _decode_inputs(g)
+    (jk, jv), (pk, pv) = _quant_pools(kp, vp, kv_dtype)
+    scale = 1.0 / D ** 0.5
+    ours = pt_paged.paged_attention_decode(
+        torch.from_numpy(q), pk, pv, *_t(bt, pos), scale=scale,
+        sliding_window=window).numpy()
+    fallback = np.asarray(jax_paged.paged_attention_decode(
+        jnp.asarray(q), jk, jv, *_j(bt, pos), scale=scale,
+        sliding_window=window, use_kernel=False))
+    interp = np.asarray(pallas_decode(
+        jnp.asarray(q), jk, jv, *_j(bt, pos), scale=scale,
+        sliding_window=window, interpret=True))
+    np.testing.assert_allclose(ours, fallback, atol=QTOL, rtol=QTOL)
+    np.testing.assert_allclose(ours, interp, atol=QTOL, rtol=QTOL)
+    idx = np.arange(len(pos), dtype=np.int32)
+    rag = pt_paged.paged_attention_ragged(
+        torch.from_numpy(q), pk, pv, *_t(bt, idx, pos, ((pos // 64) + 1) * 64),
+        scale=scale, sliding_window=window).numpy()
+    np.testing.assert_allclose(ours, rag, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_prefill_plain_matches_jax(kv_dtype, g, window):
+    """K6's plain version on a quantized pool against the Pallas
+    ``_prefill_kernel`` in interpret mode and the jnp fallback."""
+    q, kp, vp, bt, start = _prefill_inputs(g)
+    (jk, jv), (pk, pv) = _quant_pools(kp, vp, kv_dtype)
+    scale = 1.0 / D ** 0.5
+    ours = pt_paged.paged_attention_prefill(
+        torch.from_numpy(q), pk, pv, *_t(bt, start), scale=scale,
+        sliding_window=window).numpy()
+    fallback = np.asarray(jax_paged.paged_attention_prefill(
+        jnp.asarray(q), jk, jv, *_j(bt, start), scale=scale,
+        sliding_window=window, use_kernel=False))
+    interp = np.asarray(pallas_prefill(
+        jnp.asarray(q), jk, jv, *_j(bt, start), scale=scale,
+        sliding_window=window, interpret=True))
+    np.testing.assert_allclose(ours, fallback, atol=QTOL, rtol=QTOL)
+    np.testing.assert_allclose(ours, interp, atol=QTOL, rtol=QTOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_pools_take_attend_row(kv_dtype):
+    """Quantized pools run ``attend_row`` whatever q's type: the tile
+    routines take 2-byte pages only."""
+    pt_dtype = torch.int8 if kv_dtype == "int8" else torch.float8_e4m3fn
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (64, 128, 256):
+            assert pt_kernels.paged_path(dtype, d, pt_dtype) == "rows"

@@ -438,7 +438,7 @@ def test_budget_edge_writes_no_live_page(models):
 @pytest.mark.parametrize("kw,match", [
     (dict(spec_k=2), "draft"),
     (dict(spec_k=2, spec_draft="DRAFT", prefill_chunk=0), "chunked prefill"),
-    (dict(spec_k=2, spec_draft="DRAFT", kv_dtype="int8"), "kv_quant"),
+    (dict(spec_k=2, spec_draft="DRAFT", kv_dtype="int4"), "kv_dtype"),
     (dict(spec_k=2, spec_draft="DRAFT", ragged=False), "legacy"),
     (dict(spec_k=2, spec_draft="DRAFT", tick_pipeline_depth=2), "pipelined"),
     (dict(spec_k=2, spec_draft="llama2:num_layers=1@/ckpt"), "checkpoint"),
