@@ -33,12 +33,15 @@ Phases:
    scale fault that must fail the norm bar; the serve burst's K6 launches
    are priced at the end.  K4, K5 and K6 over int8 and fp8 e4m3 pools (one
    scale per page and kv head) at the Llama-2-7B, GQA 32/8, window and
-   draft shapes, fp32 (atol 1e-5) and bf16 (atol = rtol = 1e-2 and a
-   norm-relative error of 1e-2) against their plain versions: dead rows
-   exact zeros, K5 bitwise K4, two launches the same bits, the ``rows``
-   routine, and with the pages' scales 10% off each must fail the bf16
-   bar; each timed in bf16 at the serving shape beside its bound at the
-   quantized bytes (``<kernel>_int8`` / ``_fp8`` rows of the line).  K4
+   draft shapes, fp32 (atol 1e-5) and bf16 / fp16 (atol = rtol = 1e-2 and
+   a norm-relative error of 1e-2) against their plain versions: dead rows
+   exact zeros, K5 bitwise K4, two launches the same bits, the routine
+   ``paged_path`` names (bf16 / fp16: the tile routines' quantized stage;
+   fp32: attend_row), in bf16 each live K4 row bitwise the same alone and
+   in a permuted tick, and with the pages' scales 10% off each must fail
+   the bf16 bar; each timed in bf16 at the serving shape beside its bound
+   at the quantized bytes (``<kernel>_int8`` / ``_fp8`` rows of the
+   line).  K4
    is also timed on the mixed tick's 8 decode rows alone, on a decode-only
    tick (8 x 2048), on the verify tick and on the
    serve burst's two tick kinds (its 8 prompts half-way through their new
@@ -104,7 +107,7 @@ Phases:
 6. ``kvq``: quantized KV pages.  The serve burst through the port's
    server at ``--kv_dtype int8``, then ``fp8``, on the same full-depth
    Llama-2-7B: every answer 200 with its lengths, K4 and K6 (counters set
-   to 0 just before) launched on ``attend_row`` over the quantized pools,
+   to 0 just before) launched on the tile routines over the quantized pools,
    ``/health``'s ``kv_pool_bytes`` half the bf16 serve phase's and
    ``kv_scale_bytes`` 2 x L x pages x nkv x 4; then one ragged tick over
    int8 pools (the tick phase's inputs, quantized page by page) through
@@ -118,9 +121,10 @@ Phases:
    greedy prompts must give identical tokens and log-probs within 1e-4,
    with an independent 1-layer draft (acceptance about 0: the correction
    path) and with an identity pair (a 2-layer draft, the target its
-   extension to 4 layers; acceptance >= 0.99); then the identity pair over
-   int8 and over fp8 pools, K5 launched there (counters set to 0 just
-   before the spec run) and acceptance >= 0.5 (the two models' caches
+   extension to 4 layers; acceptance >= 0.99); then a bf16 identity pair
+   of the same shape over int8 and over fp8 pools, K5 launched there on
+   the tile routine (counters set to 0 just before the spec run) and
+   acceptance >= 0.5 (the two models' caches
    differ by the rounding of differently grouped writes, so tokens may
    part: printed).  (b) bf16 at full depth:
    the target is the identity extension of a 2-layer draft; the serve
@@ -567,14 +571,17 @@ def _quant_agree(torch, ker, ref, dtype):
 
 
 def quantized_paged_kernels(torch, gen, dev, cases, rows):
-    """K4, K5 and K6 over int8 and fp8 e4m3 pools (``attend_row`` reads
-    the one-byte pages and their scales): each held to its plain version
-    (which dequantizes the gathered pages in fp32) in fp32 and bf16 at the
-    ``QUANT_CASES`` shapes; dead rows exact zeros, K5 bitwise K4 on the
-    same rows, two launches the same bits, the routine ``rows``, and every
-    kernel with its pages' scales 10% off failing the bf16 bar.  Then each
-    is timed at the serving path's shape in bf16 beside its bound at the
-    quantized bytes: into ``rows`` as ``<kernel>_<kv_dtype>``."""
+    """K4, K5 and K6 over int8 and fp8 e4m3 pools: each held to its plain
+    version (which dequantizes the gathered pages in fp32) in fp32, bf16
+    and fp16 at the ``QUANT_CASES`` shapes, on the routine the path rule
+    names (bf16 / fp16: the tile routines, which read the one-byte pages
+    on the tensor cores; fp32: ``attend_row``, so both stay held to their
+    plain versions); dead rows exact zeros, K5 bitwise K4 on the same
+    rows, two launches the same bits, every kernel with its pages' scales
+    10% off failing the bf16 bar, and in bf16 each live K4 row bitwise the
+    same alone and in a permuted tick.  Then each is timed at the serving
+    path's shape in bf16 beside its bound at the quantized bytes: into
+    ``rows`` as ``<kernel>_<kv_dtype>``."""
     from megatron_llm_tpu_torch.ops import kernels, kv_quant
     from megatron_llm_tpu_torch.tools.kernel_check import (
         bound,
@@ -589,9 +596,10 @@ def quantized_paged_kernels(torch, gen, dev, cases, rows):
     worst = {}
     for kv in KV_QUANT:
         for name in QUANT_CASES:
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 case = RaggedCase(torch, gen, dev, dtype, kv_dtype=kv,
                                   **cases[name])
+                want = kernels.paged_path(dtype, case.d, case.k.q.dtype)
                 dec, dec_k4 = case.decode(True), case.decode_as_ragged()
                 torch.cuda.synchronize()
                 if not torch.equal(dec, dec_k4):
@@ -622,7 +630,7 @@ def quantized_paged_kernels(torch, gen, dev, cases, rows):
                         f"{torch.equal(ker, again)}; {path}; scales 10% off "
                         f"caught {caught}")
                     if not ok or not torch.equal(ker, again) or \
-                            path != "rows" or not caught:
+                            path != want or not caught:
                         raise AssertionError(
                             f"{kname} over a {kv} pool on {name} {dtype}: "
                             f"agrees {ok} (max abs err {max_err}, "
@@ -631,6 +639,16 @@ def quantized_paged_kernels(torch, gen, dev, cases, rows):
                             f"planted fault caught {caught}")
                     if name == "llama2-7b" and dtype == torch.bfloat16:
                         worst[kname, kv] = max_err
+                if dtype == torch.bfloat16:
+                    bad = _rows_stand_alone(torch, case, seed=len(name))
+                    log(f"  paged_ragged  {name:13s} {kv:4s} {str(dtype):14s} "
+                        f"{case.q.shape[0] - case.n_dead} live rows bitwise "
+                        f"the same alone and in a permuted tick: {not bad}")
+                    if bad:
+                        raise AssertionError(
+                            f"paged_ragged rows {bad[:8]} of {name} over a "
+                            f"{kv} pool differ alone or in a permuted tick "
+                            f"from the full tick")
                 del case
     for kv in KV_QUANT:
         case = RaggedCase(torch, gen, dev, torch.bfloat16, kv_dtype=kv,
@@ -1561,7 +1579,7 @@ def _served_kv_run(args, kv_dtype):
     """The serve burst through the port's server at ``--kv_dtype``, on the
     serve phase's model (the same argv and seed): returns ``(summary,
     (cfg, params))``; the K4 and K6 launches are the burst's alone
-    (counters set to 0 just before) and must be on ``rows``."""
+    (counters set to 0 just before) and must be on the tile routines."""
     import numpy as np
     import torch
 
@@ -1591,7 +1609,7 @@ def _served_kv_run(args, kv_dtype):
     generated = check_answers(results, prompts, bodies)
     launches = {w: launches[w] for w in ("paged_ragged_kernel",
                                          "paged_prefill_kernel")}
-    if min(launches.values()) <= 0 or paths != ("rows", "rows"):
+    if min(launches.values()) <= 0 or paths != ("tile", "tile"):
         raise AssertionError(f"{kv_dtype} burst: launches {launches}, "
                              f"routines {paths}")
     m = engine.cfg.model
@@ -1674,8 +1692,8 @@ def _write_cost(torch, dev, paged, pool, m) -> dict:
 
 def phase_kvq(dev, report, args):
     """The serve burst at ``--kv_dtype int8``, then ``fp8``, through the
-    port's server on the full-depth Llama-2-7B (K4 and K6 on ``rows`` over
-    the quantized pools; ``/health`` value bytes half a bf16 pool's, and
+    port's server on the full-depth Llama-2-7B (K4 and K6 on the tile
+    routines over the quantized pools; ``/health`` value bytes half a bf16 pool's, and
     the scale bytes), then one ragged tick over int8 pools through the
     kernels and through the plain versions."""
     import copy
@@ -1711,7 +1729,8 @@ def phase_kvq(dev, report, args):
               f"/health kv_pool_bytes {row['kv_pool_bytes']}, kv_scale_bytes"
               f" {row['kv_scale_bytes']}{beside}", flush=True)
         print(f"kvq serve ({kv}): kernel launches on the main path "
-              f"{json.dumps(row['launches'])}, K4 and K6 on attend_row",
+              f"{json.dumps(row['launches'])}, K4 and K6 on the tile "
+              f"routines",
               flush=True)
         if kv != KV_QUANT[-1]:
             model = None
@@ -1747,7 +1766,7 @@ def phase_kvq(dev, report, args):
     n1 = k4.launches
     ref = _tick_logits(torch, plain_cfg, params, paged, tokens,
                        tuple(map(clone, pools)))
-    if n1 - n0 != m.num_layers or k4.launches != n1 or k4.last_path != "rows":
+    if n1 - n0 != m.num_layers or k4.launches != n1 or k4.last_path != "tile":
         raise AssertionError(f"the int8 tick launched K4 {n1 - n0} times "
                              f"through the kernels ({k4.last_path}), "
                              f"{k4.launches - n1} through the plain path")
@@ -1838,10 +1857,10 @@ def _spec_fp32_check(dev, args, rng, report):
     """Part (a): spec_k = 4 against spec_k = 0 on the same greedy prompts,
     fp32 at Llama-2-7B width and 4 layers, with an independent 1-layer
     draft and with the identity pair (a 2-layer draft, the target its
-    extension to 4 layers), on plain pools; then the identity pair over
-    int8 and fp8 pools (tokens identical, acceptance >= 0.99, K5 launched
-    over the quantized pools: counters set to 0 just before the spec run,
-    into ``report["spec_kvq_launches"]``)."""
+    extension to 4 layers), on plain pools; then a bf16 identity pair of
+    the same shape over int8 and fp8 pools (acceptance >= 0.5, K5
+    launched over the quantized pools on the tile routine: counters set
+    to 0 just before the spec run, into ``report["spec_kvq_launches"]``)."""
     import numpy as np
     import torch
 
@@ -1869,12 +1888,19 @@ def _spec_fp32_check(dev, args, rng, report):
                                    _seeded_gen(dev, args.seed + 13)),
             DraftModel(d2cfg, d2)),
     }
+    # the identity pair over quantized pools runs in bf16, the serving
+    # type, so K5 reads the one-byte pages on the tile routine
+    cfg_q, d2q_cfg = (_llama_cfg("bfloat16", SPEC_CHECK_LAYERS),
+                      _llama_cfg("bfloat16", 2))
+    d2q = _random_params(d2q_cfg, args.seed + 12, dev)
+    quant_pair = (extend_params_identity(d2q_cfg, d2q, cfg_q,
+                                         _seeded_gen(dev, args.seed + 13)),
+                  DraftModel(d2q_cfg, d2q))
     rows = {}
     report["spec_kvq_launches"] = {}
-    runs = [(name, "bf16") for name in pairs] + [(identity, kv)
-                                                 for kv in KV_QUANT]
-    for name, kv in runs:
-        target, draft = pairs[name]
+    runs = [(name, "bf16", cfg, pairs[name]) for name in pairs] + [
+        (identity, kv, cfg_q, quant_pair) for kv in KV_QUANT]
+    for name, kv, cfg, (target, draft) in runs:
         kw = dict(device=dev, max_slots=4, max_seq=1024, kv_dtype=kv)
         base, _ = _greedy_engine_run(
             ContinuousBatchingEngine(cfg, target, None, **kw), prompts,
@@ -1895,8 +1921,8 @@ def _spec_fp32_check(dev, args, rng, report):
                   for a, b in zip(base, spec)) if same else float("inf")
         stats = eng.spec_stats()
         acc = stats["acceptance_rate"]
-        key = name if kv == "bf16" else f"{name}, {kv} pools"
-        print(f"spec fp32 ({key}): {len(prompts)} greedy prompts x "
+        key = name if kv == "bf16" else f"{name}, bf16 over {kv} pools"
+        print(f"spec ({key}): {len(prompts)} greedy prompts x "
               f"{SPEC_CHECK_NEW} tokens, spec_k {SPEC_K} vs 0: tokens "
               f"{'identical' if same else 'part at new tokens ' + str(parts)}"
               f", max |d logp| {dlp:.3e}, acceptance {acc}, tokens per tick "
@@ -1920,12 +1946,12 @@ def _spec_fp32_check(dev, args, rng, report):
         if not acc >= SPEC_MIN_ACCEPT["quantized"]:
             raise AssertionError(f"spec fp32 ({key}): acceptance {acc}")
         if not (kv_quant.is_quantized(eng.pool.draft_k) and k5 > 0
-                and kernels.paged_decode_kernel.last_path == "rows"):
+                and kernels.paged_decode_kernel.last_path == "tile"):
             raise AssertionError(f"spec fp32 ({key}): K5 launches {k5} "
                                  f"over {type(eng.pool.draft_k)}")
         report["spec_kvq_launches"][kv] = {"paged_decode_kernel": k5}
         del eng, base, spec
-    del pairs, d2
+    del pairs, d2, quant_pair, d2q
     return rows
 
 
@@ -2444,11 +2470,14 @@ KERNEL_META = {
         wrapper="paged_prefill_kernel", launches_from="serve_launches",
         kv_dtype="bf16",
         library_note="no single PyTorch call reads a paged KV pool"),
-    # K4 / K5 / K6 over quantized pools: attend_row with the storage type
-    # and the pages' scales; launches from the kvq phase's bursts (K4, K6)
-    # and the spec phase's identity pair over the same pools (K5)
+    # K4 / K5 / K6 over quantized pools: the tile routines' quantized stage
+    # (one-byte maps, scales per column); launches from the kvq phase's
+    # bursts (K4, K6) and the spec phase's bf16 identity pair over the same
+    # pools (K5)
     **{f"{kname}_{kv}": dict(
-        source="megatron_llm_tpu_torch/ops/kernels/csrc/paged_common.cuh",
+        source="megatron_llm_tpu_torch/ops/kernels/csrc/" + (
+            "paged_prefill_tile.cuh" if kname == "paged_prefill"
+            else "paged_tile.cuh"),
         replaces=f"megatron_llm_tpu/ops/pallas/paged_attention.py:{line}",
         wrapper=f"{kname}_kernel",
         launches_from=(("spec_kvq_launches", kv) if kname == "paged_decode"

@@ -148,7 +148,8 @@ def _check_paged(name, q, k_pool, v_pool, ints) -> PagedPools:
     n = q.shape[-2]
     if q.shape[-1] != d:
         raise ValueError(f"{name}: q head_dim {q.shape[-1]} != pool {d}")
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS:   # each a pool row of a multiple of 16 bytes, one
+        # byte a value too: the stride the tile routines' TMA maps need
         raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
     if page % 8:
         raise ValueError(f"{name}: page_size {page} not a multiple of 8")
@@ -166,18 +167,18 @@ PAGED_PATHS = ("rows", "tile")   # the K4-K6 entry points' `path` codes
 def paged_path(dtype: torch.dtype, head_dim: int,
                pool_dtype: Optional[torch.dtype] = None) -> str:
     """Which device routine K4, K5 and K6 run, from q's ``dtype``, the
-    head_dim and the pool's storage type (``pool_dtype``; None: q's):
-    ``"tile"`` for bf16 and fp16 plain pools at head_dim 64 and 128 (K4 /
-    K5: ``csrc/paged_tile.cuh``, adjacent rows on one block table share a
+    head_dim and the pool's storage type (``pool_dtype``: q's, int8 or
+    float8_e4m3fn; None: q's): ``"tile"`` for bf16 and fp16 q at head_dim
+    64 and 128, over plain and quantized pools (K4 / K5:
+    ``csrc/paged_tile.cuh``, adjacent rows on one block table share a
     block and its page loads; K6: ``csrc/paged_prefill_tile.cuh``, 64
     (row, head) pairs of a chunk share each page load on wgmma; products
-    on the tensor cores); ``"rows"`` (``csrc/paged_common.cuh``:
-    ``attend_row``, a block per row, fp32 dots) for fp32, whose products
-    in TF32 would keep too few digits, for head_dim 256, whose accumulators
-    do not fit the registers, and for quantized pools (int8 / fp8 e4m3:
-    the tile routines' TMA maps and wgmma operands take 2-byte pages)."""
-    if pool_dtype is not None and pool_dtype != dtype:
-        return "rows"
+    on the tensor cores, one-byte pages converted exactly to q's type and
+    their scales applied per column in fp32); ``"rows"``
+    (``csrc/paged_common.cuh``: ``attend_row``, a block per row, fp32 dots)
+    for fp32 q, whose products in TF32 would keep too few digits, and for
+    head_dim 256, whose accumulators do not fit the registers.  The pool's
+    storage type does not change the answer."""
     if dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128):
         return "tile"
     return "rows"

@@ -3,9 +3,11 @@
 // barriers, register reallocation (setmaxnreg), wgmma shared-memory
 // descriptors, the wgmma products the flash kernels use, and the fences
 // around them.  Used by flash_fwd_hopper.cu (K1) and flash_bwd_hopper.cu
-// (K2 / K3); paged_tile.cuh (K4 / K5) uses the tensor maps, TMA loads and
-// mbarriers; paged_prefill_tile.cuh (K6) also the wgmma products in bf16
-// and fp16, and the cluster barrier and loads that fold its segments.
+// (K2 / K3); paged_tile.cuh (K4 / K5) uses the tensor maps (16-bit, and
+// one-byte ones for quantized pools), TMA loads, mbarriers and the cp.async
+// copies of the page scales; paged_prefill_tile.cuh (K6) also the wgmma
+// products in bf16 and fp16, the proxy fence, and the cluster barrier and
+// loads that fold its segments.
 //
 // Shared-memory tiles are [rows][64] bf16 sub-tiles: 128 bytes a row, laid
 // down by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B (each 16-byte chunk of
@@ -76,20 +78,25 @@ inline EncodeTiledFn encode_tiled_fn() {
 // [b, s, heads, d] tensor: `geo` holds the global dims innermost first (d,
 // heads, s, b) and the byte strides of heads, s and b (7 values).  A box is
 // `rows` rows of one head by 64 columns, 128B-swizzled; rows past s read as
-// zeros and still count in the box's transaction bytes.
+// zeros and still count in the box's transaction bytes.  With `type`
+// UINT8: one-byte elements (quantized KV pages, fp8 moved as bytes), boxes
+// of `rows` rows x `cols` bytes, 128B- or 64B-swizzled (`swizzle`: 16-byte
+// chunk c of row r lands at chunk c ^ (r % 8), or c ^ ((r / 2) % 4)).  TMA
+// takes byte strides that are multiples of 16.
 inline cudaError_t encode_rows_bf16(
     CUtensorMap* map, const void* base, const long long* geo, uint32_t rows,
-    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B, uint32_t cols = 64) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)geo[0], (cuuint64_t)geo[1], (cuuint64_t)geo[2],
                               (cuuint64_t)geo[3]};
   const cuuint64_t strides[3] = {(cuuint64_t)geo[4], (cuuint64_t)geo[5], (cuuint64_t)geo[6]};
-  const cuuint32_t box[4] = {64, 1, rows, 1};
+  const cuuint32_t box[4] = {cols, 1, rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, type, 4, const_cast<void*>(base),
                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {
     fprintf(stderr,
@@ -157,6 +164,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 4 bytes from global `src` into shared `dst` by cp.async; `src_bytes` 0
+// writes zeros and reads nothing.  Then an arrival on `bar` once every
+// cp.async this thread started so far has landed (.noinc: the barrier's
+// init count includes it).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before the
+// async proxy's reads that follow a barrier (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Named barrier `id` (0 is __syncthreads') over `threads` threads: sync

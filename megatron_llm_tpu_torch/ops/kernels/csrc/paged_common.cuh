@@ -1,6 +1,9 @@
 // Shared device code of the three paged-attention kernels
 // (paged_ragged.cu, paged_decode.cu, paged_prefill.cu): one query token's
 // GQA group of heads attends through one block table, for one kv head.
+// This is their "rows" routine, for fp32 q and head_dim 256; bf16 / fp16 q
+// at head_dim 64 / 128 take the tile routines (paged_tile.cuh,
+// paged_prefill_tile.cuh), over plain and quantized pools alike.
 //
 // What bounds these kernels on an H100 is the bytes of K/V pages read from
 // device memory (3.35 TB/s): about 4 flops per byte read, far below the
@@ -263,7 +266,7 @@ template <typename T> struct Storage<T, 2> { using type = __nv_fp8_e4m3; };
 #endif
 #define PAGED_CAT_(a, b) a##_##b
 #define PAGED_CAT(a, b) PAGED_CAT_(a, b)
-// `name_<PAGED_KV>`: the object's own rows routine
+// `name_<PAGED_KV>`: the object's own routine (rows or tile)
 #define PAGED_ROWS(name) PAGED_CAT(name, PAGED_KV)
 
 // Instantiate `KERNEL<T, PAGED_KV, D, GP>` for the runtime (dtype, d, gp) and

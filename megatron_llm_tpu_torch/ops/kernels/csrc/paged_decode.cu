@@ -12,15 +12,16 @@
 // ragged kernel.  Design: grid (b, n_kv_heads), one block per (row, kv
 // head) owning the row's g = n/nkv query heads (native GQA, no K/V
 // expansion), walking the row's pages with the ragged kernel's device
-// routine for the same `path` (paged_tile.cuh: attend_tile, each row a
-// tile of one; paged_common.cuh: attend_row) and a horizon that never
-// binds (W * page).  The same routine over the same [lo, hi) walk makes a
-// row's output bitwise the ragged kernel's for that row, which is the JAX
-// package's contract between the two kernels.
+// routine for the same `path` (paged_tile.cuh, each row a tile of one,
+// launched through paged_tile.cuh's tile_launch; paged_common.cuh:
+// attend_row) and a horizon that never binds (W * page).  The same routine
+// over the same [lo, hi) walk makes a row's output bitwise the ragged
+// kernel's for that row, which is the JAX package's contract between the
+// two kernels.
 #include "device_guard.cuh"
 #include "paged_common.cuh"
 #if PAGED_KV == 0
-#include "paged_tile.cuh"
+#include "paged_tile.cuh"   // tile::Args, tile_launch
 #endif
 
 namespace paged {
@@ -86,9 +87,9 @@ cudaError_t PAGED_ROWS(decode_rows)(const DecodeRows& a, int b, int d,
 
 #if PAGED_KV == 0
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; kv: the pools' storage, 0 =
-// q's type, 1 = int8, 2 = fp8 e4m3 (k_scale / v_scale [pages][nkv] fp32;
-// rows only); path: 0 = rows, 1 = tile (bf16 / fp16 plain pools at d 64 /
-// 128 only); pages: the pools' page count; seg_stages, segs, slots, the
+// q's type, 1 = int8, 2 = fp8 e4m3 (k_scale / v_scale [pages][nkv] fp32);
+// path: 0 = rows, 1 = tile (bf16 / fp16 q at d 64 / 128 only); pages: the
+// pools' page count; seg_stages, segs, slots, the
 // plan and the workspace: the tile path's (paged_tile.cuh: Args); device:
 // the tensors' device.  Returns a cudaError_t.
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
@@ -106,8 +107,9 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 1) {
-    if (kv != 0) return (int)cudaErrorInvalidValue;  // tile: plain pools
     paged::tile::Args a{};
+    a.k_scale = static_cast<const float*>(k_scale);
+    a.v_scale = static_cast<const float*>(v_scale);
     a.q = q;
     a.out = out;
     a.tables = static_cast<const int*>(block_tables);
@@ -120,7 +122,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
     a.rows = b, a.n = n, a.nkv = nkv, a.W = W, a.page = page, a.pages = pages;
     a.window = window, a.seg_stages = seg_stages, a.segs = segs, a.slots = slots;
     a.scale = scale;
-    return (int)paged::tile::launch(a, k_pool, v_pool, d, dtype, st);
+    return (int)paged::tile_launch(a, k_pool, v_pool, d, dtype, kv, st);
   }
   const paged::DecodeRows a{
       q, k_pool, v_pool, static_cast<const float*>(k_scale),

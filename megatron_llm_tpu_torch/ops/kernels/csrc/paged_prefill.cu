@@ -13,13 +13,13 @@
 // device routines, picked by type and head_dim in Python
 // (ops/kernels/__init__.py: paged_path) and passed as `path`:
 //
-// * path 1, "tile" (bf16 / fp16 at head_dim 64 and 128): 64 (row, head)
-//   pairs of one kv head share each page load (TMA) and the products run
-//   on wgmma, the context cut into segments over blocks
-//   (paged_prefill_tile.cuh: the design);
-// * path 0, "rows" (fp32, head_dim 256, and every quantized pool: int8 /
-//   fp8 e4m3 pages with per-(page, kv head) scales): the Pallas kernel's
-//   kv-head-major
+// * path 1, "tile" (bf16 / fp16 q at head_dim 64 and 128, over plain pools
+//   and over int8 / fp8 e4m3 pages with per-(page, kv head) scales): 64
+//   (row, head) pairs of one kv head share each page load (TMA) and the
+//   products run on wgmma, the context cut into segments over blocks
+//   (paged_prefill_tile.cuh: the design and the quantized stage);
+// * path 0, "rows" (fp32 q and head_dim 256, over every pool): the Pallas
+//   kernel's kv-head-major
 //   query rows [b, nkv, s * g, d] become the grid (b, n_kv_heads, s): a
 //   block owns the g rows of one token and one kv head, reads them straight
 //   from q's [b, s, n, d] layout, and walks the pages up to its own position
@@ -28,9 +28,7 @@
 //   L2 after the first.
 #include "device_guard.cuh"
 #include "paged_common.cuh"
-#if PAGED_KV == 0
 #include "paged_prefill_tile.cuh"
-#endif
 
 namespace paged {
 
@@ -93,13 +91,26 @@ cudaError_t PAGED_ROWS(prefill_rows)(const PrefillRows& a, int b, int d,
   return cudaGetLastError();
 }
 
+// The tile routine over pools of storage code 0, 1 or 2 (one per object).
+cudaError_t prefill_tile_0(prefill_tile::Args&, const void*, const void*, int d, int dtype,
+                           cudaStream_t);
+cudaError_t prefill_tile_1(prefill_tile::Args&, const void*, const void*, int d, int dtype,
+                           cudaStream_t);
+cudaError_t prefill_tile_2(prefill_tile::Args&, const void*, const void*, int d, int dtype,
+                           cudaStream_t);
+
+cudaError_t PAGED_ROWS(prefill_tile)(prefill_tile::Args& a, const void* k_pool,
+                                     const void* v_pool, int d, int dtype, cudaStream_t st) {
+  return prefill_tile::launch<PAGED_KV>(a, k_pool, v_pool, d, dtype, st);
+}
+
 }  // namespace paged
 
 #if PAGED_KV == 0
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; kv: the pools' storage, 0 =
-// q's type, 1 = int8, 2 = fp8 e4m3 (k_scale / v_scale [pages][nkv] fp32;
-// rows only); path: 0 = rows, 1 = tile (bf16 / fp16 plain pools at d 64 /
-// 128 only); pages: the pools' page count; seg_stages and segs: the tile
+// q's type, 1 = int8, 2 = fp8 e4m3 (k_scale / v_scale [pages][nkv] fp32);
+// path: 0 = rows, 1 = tile (bf16 / fp16 q at d 64 / 128 only); pages: the
+// pools' page count; seg_stages and segs: the tile
 // path's segments (paged_prefill_tile.cuh: Args); device: the tensors'
 // device.  Returns a cudaError_t.
 extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
@@ -116,8 +127,9 @@ extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 1) {
-    if (kv != 0) return (int)cudaErrorInvalidValue;  // tile: plain pools
     paged::prefill_tile::Args a{};
+    a.k_scale = static_cast<const float*>(k_scale);
+    a.v_scale = static_cast<const float*>(v_scale);
     a.q = q;
     a.out = out;
     a.tables = static_cast<const int*>(block_tables);
@@ -125,7 +137,12 @@ extern "C" int paged_prefill_launch(const void* q, const void* k_pool,
     a.b = b, a.s = s_len, a.n = n, a.nkv = nkv, a.W = kv_pages, a.page = page;
     a.pages = pages, a.window = window, a.seg_stages = seg_stages, a.segs = segs;
     a.scale = scale;
-    return (int)paged::prefill_tile::launch(a, k_pool, v_pool, d, dtype, st);
+    switch (kv) {
+      case 0: return (int)paged::prefill_tile_0(a, k_pool, v_pool, d, dtype, st);
+      case 1: return (int)paged::prefill_tile_1(a, k_pool, v_pool, d, dtype, st);
+      case 2: return (int)paged::prefill_tile_2(a, k_pool, v_pool, d, dtype, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   const paged::PrefillRows a{
       q, k_pool, v_pool, static_cast<const float*>(k_scale),

@@ -1,7 +1,8 @@
 // Chunked-prefill paged attention on the tensor cores: the bf16 / fp16 path
 // of the prefill kernel (K6, paged_prefill.cu) at head_dim 64 and 128
-// (ops/kernels/__init__.py: paged_path).  fp32 pools and head_dim 256 keep
-// attend_row (paged_common.cuh).
+// (ops/kernels/__init__.py: paged_path), over plain pools in q's type and
+// over quantized ones (int8 or fp8 e4m3 values, one fp32 scale a (page, kv
+// head)).  fp32 q and head_dim 256 keep attend_row (paged_common.cuh).
 //
 // What holds attend_row back on a chunk: it is one block per (chunk token,
 // kv head) with fp32 dots on CUDA cores, so each of a 64-token chunk's rows
@@ -58,6 +59,26 @@
 //   stages that cross the rows' positions, the window's edge or the
 //   table's end are masked per element.  Stages past the last row's
 //   position and below the first row's window are never walked.
+// * Quantized pools (S = int8_t or __nv_fp8_e4m3; the Pallas kernels'
+//   _split_quant semantics: a page's values times its scale, in fp32).
+//   wgmma reads K and V from shared memory in T, 128B-swizzled, so a stage
+//   has to be converted there, and the consumer warpgroup is the walk's
+//   bottleneck already: the conversion goes to the producer side, two
+//   loader warps.  Warp 4 streams a stage's bytes by TMA through K4's
+//   one-byte maps (paged_tile.cuh: boxes of 8 tokens x a row of d bytes)
+//   into a byte ring of BST stages, its lanes 0-7 copying each 8-token
+//   group's K and V scales beside them by cp.async (0 for the page past
+//   the map's end, never read), all counted on the byte stage's mbarrier;
+//   both loader warps then convert the stage, exactly (int8 and e4m3 are
+//   exact in bf16 and fp16), into the 16-bit ring the consumers read, in
+//   the layout TMA gives a plain pool, copy its scales beside it, fence
+//   their writes for the async proxy and arrive on the stage's full
+//   barrier; warp 4 refills the byte stage once both warps have read it.
+//   The consumers' walk is the plain pool's but for the scales, applied per
+//   column in fp32: S's column by its token's K scale (before the softmax
+//   scale), P's by its V scale before P's hi / lo split (l sums the
+//   unscaled P).  The byte ring (BST = 1 at d 128, 2 at d 64) keeps two
+//   blocks an SM.
 #pragma once
 
 #include "paged_tile.cuh"   // the pool maps, swz, pack2, carry
@@ -70,8 +91,10 @@ constexpr int SPAN = tile::SPAN;          // tokens a stage holds
 constexpr int BOX = tile::BOX;            // tokens a TMA box holds
 constexpr int CONSUMERS = 128;            // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;   // and the producer warp
+constexpr int LOADERS = 64;               // quantized pools: two loader warps
 constexpr int SUB_BYTES = PAIRS * 128;    // one [64 rows][64] 16-bit sub-tile
 constexpr int BAR_CONSUMERS = 1;          // the consumers' named barrier
+constexpr int BAR_LOADERS = 2;            // the loader warps' (quantized pools)
 constexpr int MAX_SEGS = 4;               // segments a tile: the blocks of a cluster
 
 // Heads a pass takes and chunk tokens a tile holds, for a GQA group of g
@@ -86,14 +109,21 @@ __host__ __device__ inline int head_passes(int g) {
 // Shared memory (bytes from a 1024-byte-aligned base): the queries [D / 64]
 // sub-tiles, then the K ring and the V ring, each [STAGES][D / 64]
 // sub-tiles; after the walk the ring holds the block's state for the
-// cluster's fold, (m, l) [PAIRS][2] and O [PAIRS][PITCH] fp32.  Two blocks
-// an SM.
-template <int D>
+// cluster's fold, (m, l) [PAIRS][2] and O [PAIRS][PITCH] fp32.  A quantized
+// pool adds the byte ring [BST][K, V][SPAN][D bytes] (tile::swzq), the scales
+// of its stages [BST][16] and of the 16-bit ring's [STAGES][16] (K's 8
+// groups, then V's), and the byte ring's barriers.  Two blocks an SM.
+template <int D, bool QUANT = false>
 struct Smem {
   static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int BST = D == 128 ? 1 : 2;   // byte stages (quantized)
   static constexpr int TILE = (D / 64) * SUB_BYTES;   // bytes of Q, or of a stage's K
   static constexpr int Q = 0, K = TILE, V = (1 + STAGES) * TILE;
-  static constexpr int BYTES = (1 + 2 * STAGES) * TILE + 1024;   // + the base's alignment
+  static constexpr int BYTE_STAGE = 2 * SPAN * D;   // bytes of a stage's K and V
+  static constexpr int QB = (1 + 2 * STAGES) * TILE;
+  static constexpr int SC = QB + BST * BYTE_STAGE;   // [BST][16], then [STAGES][16] floats
+  static constexpr int BAR = SC + (BST + STAGES) * 16 * 4;   // bfull[BST]
+  static constexpr int BYTES = (QUANT ? BAR + BST * 8 : QB) + 1024;   // + the base's alignment
   static constexpr int PITCH = D + 8;   // floats a pair's O row: conflict-free stores
   static constexpr int STATE = PAIRS * (2 + PITCH) * 4;   // bytes of the state
   static_assert(2 * (D / 64) * (SPAN / BOX) <= 32, "one lane of the producer a box");
@@ -104,7 +134,9 @@ struct Smem {
 // ((bi * nkv + h) * passes + pass) * tiles_a_pass + t; with segs > 1 the
 // segs blocks of a tile form one cluster.
 struct Args {
-  CUtensorMap tm_k, tm_v;   // the pools [pages, page, nkv, D]: boxes of BOX tokens x 64 dims
+  CUtensorMap tm_k, tm_v;   // the pools [pages, page, nkv, D] (paged_tile.cuh: encode_pools)
+  const float* k_scale;     // [pages, nkv] (quantized pools; else null)
+  const float* v_scale;
   const void* q;            // [b, s, n, D]
   void* out;                // [b, s, n, D]
   const int* tables;        // [b, W]
@@ -113,11 +145,21 @@ struct Args {
   float scale;
 };
 
+// Threads a block: the consumers and the producer warp; a quantized pool's
+// second loader warp.
+template <bool QUANT>
+struct Threads {
+  static constexpr int value = QUANT ? CONSUMERS + LOADERS : THREADS;
+};
+
 // A block: tile blockIdx.x, segment blockIdx.y (its rank in the cluster).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 2)
+// S: the pools' storage type (T: a plain pool; int8_t or __nv_fp8_e4m3:
+// quantized, scaled by a.k_scale / a.v_scale).
+template <typename T, typename S, int D>
+__global__ void __launch_bounds__(Threads<!std::is_same<S, T>::value>::value, 2)
 prefill_tile_kernel(const __grid_constant__ Args a) {
-  using L = Smem<D>;
+  constexpr bool QUANT = !std::is_same<S, T>::value;
+  using L = Smem<D, QUANT>;
   constexpr int STAGES = L::STAGES;
   constexpr int H = D / 64;
   constexpr int PPR = D / 8;   // 16-byte pieces a row of D
@@ -168,17 +210,96 @@ prefill_tile_kernel(const __grid_constant__ Args a) {
     return (((long long)bi * a.s + t0 + mr / gp) * a.n + head0 + mr % gp) * D;
   };
 
+  // a quantized pool's byte ring, its stages' scales, the 16-bit ring's
+  // scales and the byte ring's barriers
+  unsigned char* const qb = smem + L::QB;
+  float* const s_bsc = reinterpret_cast<float*>(smem + L::SC);
+  float* const s_sc = s_bsc + L::BST * 16;
+  uint64_t* const bfull = reinterpret_cast<uint64_t*>(smem + L::BAR);
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < STAGES; ++i) {
-      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&full[i], QUANT ? LOADERS : 1);
       hopper::mbar_init(&empty[i], CONSUMERS);
+    }
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int i = 0; i < L::BST; ++i) hopper::mbar_init(&bfull[i], 1 + SPAN / BOX);
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == CONSUMERS / 32) {
+  if constexpr (QUANT) {
+    if (warp >= CONSUMERS / 32) {
+      // the loader warps: warp 4's lane `lane` loads byte box (tensor,
+      // token group) of each stage and lanes 0-7 the groups' scales; both
+      // warps convert
+      const int lt = tid - CONSUMERS;
+      const bool tma_warp = warp == CONSUMERS / 32;
+      const int bx_v = lane / (SPAN / BOX), bx_g = lane % (SPAN / BOX);
+      const bool boxer = lane < 2 * (SPAN / BOX);
+      const int* table = a.tables + (long long)bi * a.W;
+      auto box_page = [&](int i) {   // this lane's page id in stage i (`pages` outside the walk)
+        const int tok = (k0 + i) * SPAN + bx_g * BOX;
+        return boxer && tok + BOX > wlo && tok < whi ? table[tok / a.page] : a.pages;
+      };
+      int pid = 0;
+      auto load = [&](int i) {   // warp 4: stage i's bytes and scales into byte stage i % BST
+        const int slot = i % L::BST;
+        if (lane == 0) hopper::mbar_arrive_expect_tx(&bfull[slot], L::BYTE_STAGE);
+        __syncwarp();
+        const int tok = (k0 + i) * SPAN + bx_g * BOX;
+        if (boxer)
+          hopper::tma_load_4d(qb + slot * L::BYTE_STAGE + (bx_v * SPAN + bx_g * BOX) * D,
+                              bx_v ? &a.tm_v : &a.tm_k, &bfull[slot], 0, h, tok % a.page, pid);
+        if (lane < SPAN / BOX) {   // K's box of group `lane`: the group's page
+          const bool real = pid < a.pages;
+          const long long at = real ? (long long)pid * a.nkv + h : 0;
+          hopper::cp_async_4(s_bsc + slot * 16 + lane, a.k_scale + at, real ? 4 : 0);
+          hopper::cp_async_4(s_bsc + slot * 16 + 8 + lane, a.v_scale + at, real ? 4 : 0);
+          hopper::cp_async_mbar_arrive(&bfull[slot]);
+        }
+        pid = i + 1 < nst ? box_page(i + 1) : 0;   // the next stage's, while this one loads
+      };
+      if (tma_warp && nst > 0) {
+        pid = box_page(0);
+        for (int i = 0; i < min(L::BST, nst); ++i) load(i);
+      }
+      for (int i = 0; i < nst; ++i) {
+        const int slot = i % L::BST, buf = i % STAGES;
+        hopper::mbar_wait(&bfull[slot], (i / L::BST) & 1);
+        hopper::mbar_wait(&empty[buf], ((i / STAGES) & 1) ^ 1);   // the consumers are done with it
+        // 16-byte pieces (tensor, row, chunk c: dims 16 c .. 16 c + 15):
+        // 8 adjacent threads read 128 adjacent bytes, conflict-free
+        constexpr int CPR = D / 16;   // chunks a row
+        const unsigned char* src = qb + slot * L::BYTE_STAGE;
+#pragma unroll 4
+        for (int p = lt; p < 2 * SPAN * CPR; p += LOADERS) {
+          const int c = p % CPR, r = (p / CPR) % SPAN, tv = p / (CPR * SPAN);
+          const uint4 x = *reinterpret_cast<const uint4*>(src + tv * SPAN * D +
+                                                          tile::swzq<D>(r, 16 * c));
+          const uint2 w0 = tile::widen4<T, S>(x.x), w1 = tile::widen4<T, S>(x.y);
+          const uint2 w2 = tile::widen4<T, S>(x.z), w3 = tile::widen4<T, S>(x.w);
+          T* const dst = (tv ? sv : sk) + buf * SPAN * D;
+          *reinterpret_cast<uint4*>(dst + tile::swz<SPAN>(r, 2 * c)) =
+              make_uint4(w0.x, w0.y, w1.x, w1.y);
+          *reinterpret_cast<uint4*>(dst + tile::swz<SPAN>(r, 2 * c + 1)) =
+              make_uint4(w2.x, w2.y, w3.x, w3.y);
+        }
+        if (lt < 16) s_sc[buf * 16 + lt] = s_bsc[slot * 16 + lt];
+        hopper::fence_proxy_async();     // the writes, for wgmma's reads
+        hopper::mbar_arrive(&full[buf]);
+        hopper::named_sync(BAR_LOADERS, LOADERS);   // both warps have read byte stage `slot`
+        if (tma_warp && i + L::BST < nst) load(i + L::BST);
+      }
+      if (zf < zl) {   // the cluster's barriers (the fold is the consumers')
+        hopper::cluster_sync();
+        hopper::cluster_sync();
+      }
+      return;
+    }
+  } else if (warp == CONSUMERS / 32) {
     // the producer: lane `lane` loads box (tensor, sub-tile, token group)
     // of each stage
     const int bx_v = lane / (H * (SPAN / BOX)), bx_h = (lane / (SPAN / BOX)) % H;
@@ -229,7 +350,7 @@ prefill_tile_kernel(const __grid_constant__ Args a) {
       *reinterpret_cast<uint4*>(sq + tile::swz<PAIRS>(i / PPR, i % PPR)) = v[k];
     }
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  hopper::fence_proxy_async();
   hopper::named_sync(BAR_CONSUMERS, CONSUMERS);
 
   // warp w holds pairs 16 w + lane / 4 and + 8 of S and O
@@ -266,6 +387,9 @@ prefill_tile_kernel(const __grid_constant__ Args a) {
       const int c0 = (k0 + i) * SPAN;
       const bool bare = c0 + SPAN - 1 <= p_first && c0 + SPAN <= cap &&
                         (a.window <= 0 || p_last - c0 < a.window);
+      // a quantized pool: column j (tokens 8 j .. 8 j + 7, one page) takes
+      // its K scale beside the softmax scale
+      const float* const scs = s_sc + buf * 16;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float mx = NEG_INF;
@@ -273,7 +397,7 @@ prefill_tile_kernel(const __grid_constant__ Args a) {
         for (int j = 0; j < SPAN / 8; ++j)
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            float v = s[j][2 * e + u] * sl2;
+            float v = s[j][2 * e + u] * (QUANT ? scs[j] * sl2 : sl2);
             if (!bare) {
               const int tok = c0 + 8 * j + 2 * (lane & 3) + u;
               const bool ok = tok < cap && tok <= pos_r[e] &&
@@ -305,6 +429,16 @@ prefill_tile_kernel(const __grid_constant__ Args a) {
             o[j][2 * e] *= alpha;
             o[j][2 * e + 1] *= alpha;
           }
+        }
+      }
+      // a quantized pool: P's column j times its V scale (l keeps the
+      // unscaled sum)
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int j = 0; j < SPAN / 8; ++j) {
+          const float vs = scs[8 + j];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) s[j][x] *= vs;
         }
       }
       // P as A fragments, its part in T and the rest: tokens 16 t .. 16 t + 15
@@ -431,15 +565,16 @@ prefill_tile_kernel(const __grid_constant__ Args a) {
   hopper::cluster_sync();   // no block leaves while another reads its state
 }
 
-template <typename T, int D>
+template <typename T, typename S, int D>
 cudaError_t launch_typed(const Args& a, int tiles, cudaStream_t st) {
-  constexpr int smem = Smem<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(prefill_tile_kernel<T, D>,
+  constexpr bool QUANT = !std::is_same<S, T>::value;
+  constexpr int smem = Smem<D, QUANT>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(prefill_tile_kernel<T, S, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles, a.segs);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(Threads<QUANT>::value);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -449,26 +584,36 @@ cudaError_t launch_typed(const Args& a, int tiles, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, prefill_tile_kernel<T, D>, a);
+  e = cudaLaunchKernelEx(&cfg, prefill_tile_kernel<T, S, D>, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// One K6 launch on the tile path.  dtype 1 = bf16, 2 = fp16; d 64 or 128.
+// One K6 launch on the tile path.  dtype 1 = bf16, 2 = fp16 (q's type); KV
+// the pools' storage code (paged_common.cuh: Storage; 1 and 2 need
+// a.k_scale / a.v_scale); d 64 or 128.
+template <int KV>
 inline cudaError_t launch(Args& a, const void* k_pool, const void* v_pool, int d, int dtype,
                           cudaStream_t st) {
   if (a.seg_stages < 1 || a.segs < 1) return cudaErrorInvalidValue;
-  cudaError_t e =
-      tile::encode_pools(&a.tm_k, &a.tm_v, k_pool, v_pool, a.nkv, a.page, a.pages, d, dtype);
+  if (KV != 0 && (a.k_scale == nullptr || a.v_scale == nullptr)) return cudaErrorInvalidValue;
+  cudaError_t e = tile::encode_pools(&a.tm_k, &a.tm_v, k_pool, v_pool, a.nkv, a.page, a.pages,
+                                     d, KV == 0 ? dtype : 3);
   if (e != cudaSuccess) return e;
   const int g = a.n / a.nkv;
   const long long tiles = (long long)a.b * a.nkv * head_passes(g) *
                           ((a.s + tile_tokens(g) - 1) / tile_tokens(g));
   if (tiles > 0x7fffffffll || a.segs > MAX_SEGS) return cudaErrorInvalidConfiguration;
-  if (dtype == 1 && d == 64) return launch_typed<__nv_bfloat16, 64>(a, (int)tiles, st);
-  if (dtype == 1 && d == 128) return launch_typed<__nv_bfloat16, 128>(a, (int)tiles, st);
-  if (dtype == 2 && d == 64) return launch_typed<__half, 64>(a, (int)tiles, st);
-  if (dtype == 2 && d == 128) return launch_typed<__half, 128>(a, (int)tiles, st);
+  using B = __nv_bfloat16;
+  using F = __half;
+  if (dtype == 1 && d == 64)
+    return launch_typed<B, typename Storage<B, KV>::type, 64>(a, (int)tiles, st);
+  if (dtype == 1 && d == 128)
+    return launch_typed<B, typename Storage<B, KV>::type, 128>(a, (int)tiles, st);
+  if (dtype == 2 && d == 64)
+    return launch_typed<F, typename Storage<F, KV>::type, 64>(a, (int)tiles, st);
+  if (dtype == 2 && d == 128)
+    return launch_typed<F, typename Storage<F, KV>::type, 128>(a, (int)tiles, st);
   return cudaErrorInvalidValue;
 }
 

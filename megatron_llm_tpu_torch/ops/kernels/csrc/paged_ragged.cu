@@ -12,21 +12,23 @@
 // picked by type and head_dim in Python (ops/kernels/__init__.py:
 // paged_path) and passed as `path`:
 //
-// * path 1, "tile" (bf16 / fp16 at head_dim 64 and 128): adjacent rows on
-//   one table share a block and its page loads, and the products run on
-//   the tensor cores (paged_tile.cuh: the design and the per-row contract);
-// * path 0, "rows" (fp32, head_dim 256, and every quantized pool: int8 /
-//   fp8 e4m3 pages with per-(page, kv head) scales, read and dequantized in
-//   the routine): grid (R, n_kv_heads), one block
+// * path 1, "tile" (bf16 / fp16 q at head_dim 64 and 128, over plain
+//   pools and over int8 / fp8 e4m3 pages with per-(page, kv head) scales):
+//   adjacent rows on one table share a block and its page loads, and the
+//   products run on the tensor cores (paged_tile.cuh: the design, the
+//   quantized stage and the per-row contract);
+// * path 0, "rows" (fp32 q and head_dim 256, over every pool): grid (R,
+//   n_kv_heads), one block
 //   per (row, kv head) owning the row's g = n/nkv query heads, so each page
 //   of the row's context is read once for the whole GQA group; the block's
 //   warps split the row's context into 8-token chunks and keep the online
 //   softmax in registers (paged_common.cuh: attend_row).
+//
+// Each object holds one pool storage type's routines (PAGED_KV, build.py),
+// and the tile routine of K5 too (paged_tile.cuh: tile_launch).
 #include "device_guard.cuh"
 #include "paged_common.cuh"
-#if PAGED_KV == 0
 #include "paged_tile.cuh"
-#endif
 
 namespace paged {
 
@@ -90,13 +92,20 @@ cudaError_t PAGED_ROWS(ragged_rows)(const RaggedRows& a, int R, int d,
   return cudaGetLastError();
 }
 
+// The tile routine (K4 and K5) over this object's storage type
+// (paged_tile.cuh: tile_launch picks the object).
+cudaError_t PAGED_ROWS(tile_launch)(tile::Args& a, const void* k_pool, const void* v_pool,
+                                    int d, int dtype, cudaStream_t st) {
+  return tile::launch<PAGED_KV>(a, k_pool, v_pool, d, dtype, st);
+}
+
 }  // namespace paged
 
 #if PAGED_KV == 0
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; kv: the pools' storage, 0 =
-// q's type, 1 = int8, 2 = fp8 e4m3 (k_scale / v_scale [pages][nkv] fp32;
-// rows only); path: 0 = rows, 1 = tile (bf16 / fp16 plain pools at d 64 /
-// 128 only); pages: the pools' page count; seg_stages, segs, slots, the
+// q's type, 1 = int8, 2 = fp8 e4m3 (k_scale / v_scale [pages][nkv] fp32);
+// path: 0 = rows, 1 = tile (bf16 / fp16 q at d 64 / 128 only); pages: the
+// pools' page count; seg_stages, segs, slots, the
 // plan and the workspace: the tile path's (paged_tile.cuh: Args); device:
 // the tensors' device.  Returns a cudaError_t.
 extern "C" int paged_ragged_launch(const void* q, const void* k_pool,
@@ -115,8 +124,9 @@ extern "C" int paged_ragged_launch(const void* q, const void* k_pool,
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 1) {
-    if (kv != 0) return (int)cudaErrorInvalidValue;  // tile: plain pools
     paged::tile::Args a{};
+    a.k_scale = static_cast<const float*>(k_scale);
+    a.v_scale = static_cast<const float*>(v_scale);
     a.q = q;
     a.out = out;
     a.tables = static_cast<const int*>(tables);
@@ -129,7 +139,7 @@ extern "C" int paged_ragged_launch(const void* q, const void* k_pool,
     a.rows = R, a.n = n, a.nkv = nkv, a.W = W, a.page = page, a.pages = pages;
     a.window = window, a.seg_stages = seg_stages, a.segs = segs, a.slots = slots;
     a.scale = scale;
-    return (int)paged::tile::launch(a, k_pool, v_pool, d, dtype, st);
+    return (int)paged::tile_launch(a, k_pool, v_pool, d, dtype, kv, st);
   }
   const paged::RaggedRows a{
       q, k_pool, v_pool, static_cast<const float*>(k_scale),

@@ -1,8 +1,9 @@
 // Paged attention on the tensor cores: the bf16 / fp16 path of the ragged
 // kernel (K4, paged_ragged.cu) and of the decode kernel (K5,
 // paged_decode.cu) at head_dim 64 and 128 (ops/kernels/__init__.py:
-// paged_path).  fp32 pools and head_dim 256 keep attend_row
-// (paged_common.cuh).
+// paged_path), over plain pools in q's type and over quantized ones (int8
+// or fp8 e4m3 values, one fp32 scale a (page, kv head)).  fp32 q and
+// head_dim 256 keep attend_row (paged_common.cuh).
 //
 // What holds attend_row back on a ragged tick: it is one block per (row,
 // kv head) with fp32 dots on CUDA cores, so the 64 rows of a prefill chunk,
@@ -62,10 +63,39 @@
 //   the same alone as in a 16-row tile, which is what K5 == K4 per row and
 //   the spec == non-spec and chunked == monolithic invariants rest on.
 //   Dead rows (horizon 0) attend nothing and write exact zeros.
+// * Quantized pools (S = int8_t or __nv_fp8_e4m3 beside q's type T; the
+//   Pallas kernels' _split_quant semantics: a page's values times its
+//   scale, in fp32).  A stage arrives as bytes, by TMA through one-byte
+//   maps: boxes of 8 tokens x a whole row of d bytes (128B-swizzled at d
+//   128, 64B at d 64; the row stride, d bytes, is a multiple of 16 as TMA
+//   needs), 16 boxes a stage where a 16-bit stage takes 32 (a stage cut in
+//   64-byte boxes, as many as the 16-bit one's, took longer than it), into
+//   a ring of STAGES byte buffers (24 KB a tensor at d 128: two blocks
+//   still share an SM).  Lanes 0-7 of warp 0 copy each 8-token group's K
+//   and V scales by cp.async beside the boxes, counted on the stage's
+//   mbarrier; a group outside the walk (page `pages`) gets scale 0 and
+//   reads nothing.  The design converts in registers rather than into a
+//   16-bit copy of the stage: a byte ring beside the 16-bit one would not
+//   leave two blocks an SM, and each lane converts only the bytes of its
+//   own fragments, exactly (int8 and e4m3 are exact in bf16 and fp16), so
+//   the products stay on mma.sync m16n8k16 in T.  To make a lane's bytes
+//   contiguous the products are permuted: column n of n8 block j of S is
+//   token 4 (n / 2) + 2 j + n % 2 of the warp's 16 (a lane's 4 columns are
+//   4 adjacent tokens, in one page since page % 8 == 0); in S = Q K^T the
+//   k16 step's index k reads dim 4 (k % 8 / 2) + 2 (k / 8) + k % 2 (Q's A
+//   fragment permuted alike, so a lane's K fragment is one 32-bit word); in
+//   O += P V column n of block jj is dim n (D / 8) + jj (a lane's V bytes
+//   are D / 8 adjacent dims of each of its 4 tokens).  The scales go per
+//   column in fp32: S's column by its token's K scale (before the softmax
+//   scale), P's by its V scale before P's hi / lo split (l sums the
+//   unscaled P).  The warps merge through a region of their own (a byte
+//   stage holds too little), in the products' column order (written in
+//   dim order, a warp's stores all fell in one bank).
 //
 // Bound on the H100: the bytes of K / V pages (3.35 TB/s), each page of a
-// tile's union counted once.  The products are far from the tensor cores'
-// rate (a decode row fills 1 of the m16 block's 16 rows at g = 1).
+// tile's union counted once (one byte a value and the scales, quantized).
+// The products are far from the tensor cores' rate (a decode row fills 1
+// of the m16 block's 16 rows at g = 1).
 #pragma once
 
 #include <limits.h>
@@ -99,16 +129,75 @@ __host__ __device__ inline int head_passes(int g) { return (g + pass_heads(g) - 
 // Shared memory (bytes from a 1024-byte-aligned base): the K ring
 // [STAGES][D / 64][SPAN][64], the V ring, the queries [D / 64][M][64] (every
 // [rows][64] sub-tile 128B-swizzled as TMA lays it down), then the tile's
-// running fp32 output [M][D] across segments.
-template <int D>
+// running fp32 output [M][D] across segments.  A quantized pool (SB = 1
+// byte a value): byte rings [STAGES][SPAN][D] (swzq's layout), then the
+// warps' merge region [WARPS][M][D] fp32 and the stages' scales
+// [STAGES][2][SPAN / BOX].
+template <int D, int SB = 2>
 struct Smem {
   static constexpr int RING = STAGES * SPAN * D;   // elements of K (and of V)
-  static constexpr int BYTES = (2 * RING + M * D) * 2 + M * D * 4 + 1024;   // + alignment
-  // a segment's merge: warps 0-1 write their state into the free stage's K
-  // buffer, warps 2-3 into its V buffer
-  static_assert(2 * M * D * 4 == SPAN * D * 2, "two warp states a stage buffer");
+  static constexpr int SCRATCH = SB == 2 ? 0 : WARPS * M * D * 4;
+  static constexpr int SCALES = SB == 2 ? 0 : STAGES * 2 * (SPAN / BOX) * 4;
+  static constexpr int BYTES =
+      2 * RING * SB + M * D * 2 + M * D * 4 + SCRATCH + SCALES + 1024;   // + alignment
+  // a segment's merge (16-bit pools): warps 0-1 write their state into the
+  // free stage's K buffer, warps 2-3 into its V buffer
+  static_assert(SB == 1 || 2 * M * D * 4 == SPAN * D * 2, "two warp states a stage buffer");
   static_assert(2 * (D / 64) * (SPAN / BOX) <= 32, "one lane of warp 0 a box");
 };
+
+// Byte offset of byte c (a dim) of token row r of a one-byte stage buffer
+// [SPAN][D] as TMA lays it down: at d 128 each 128-byte row 128B-swizzled
+// (16-byte chunk c / 16 moves to that ^ r % 8), at d 64 each 64-byte row
+// 64B-swizzled (to that ^ (r / 2) % 4).
+template <int D>
+__device__ __forceinline__ int swzq(int r, int c) {
+  if constexpr (D == 128) return r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+  else return r * 64 + ((((c >> 4) ^ (r >> 1)) & 3) << 4) + (c & 15);
+}
+
+// Four one-byte pool values (a 32-bit word) as four exact values of T: .x
+// holds bytes 0 and 1, .y bytes 2 and 3, each pair packed low byte first.
+// int8 (at most 8 significant bits) and e4m3 (4) are exact in bf16 and in
+// fp16, so the conversions below lose nothing.
+template <typename T, typename S>
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  if constexpr (std::is_same<S, int8_t>::value) {
+    const uint32_t u = w ^ 0x80808080u;   // each byte b + 128
+    if constexpr (std::is_same<T, __half>::value) {
+      // fp16 1024 + u (exponent 10, u in the mantissa) less 1152
+      const uint32_t lo = __byte_perm(u, 0x64646464u, 0x4140);
+      const uint32_t hi = __byte_perm(u, 0x64646464u, 0x4342);
+      const __half2 bias = __halves2half2(__ushort_as_half(0x6480), __ushort_as_half(0x6480));
+      __half2 a = __hsub2(*reinterpret_cast<const __half2*>(&lo), bias);
+      __half2 b = __hsub2(*reinterpret_cast<const __half2*>(&hi), bias);
+      return make_uint2(*reinterpret_cast<uint32_t*>(&a), *reinterpret_cast<uint32_t*>(&b));
+    } else {
+      // fp32 2^23 + u less 2^23 + 128, exact; a bf16 is the top half of
+      // an fp32 whose low 16 bits are zero
+      uint32_t f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[i] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+                               8388736.f);
+      return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+    }
+  } else {   // fp8 e4m3: the hardware's exact conversion to fp16
+    const __half2_raw lo =
+        __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w & 0xffffu), __NV_E4M3);
+    const __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w >> 16), __NV_E4M3);
+    if constexpr (std::is_same<T, __half>::value) {
+      return make_uint2((uint32_t)lo.x | ((uint32_t)lo.y << 16),
+                        (uint32_t)hi.x | ((uint32_t)hi.y << 16));
+    } else {
+      const uint32_t f0 = __float_as_uint(__half2float(__ushort_as_half(lo.x)));
+      const uint32_t f1 = __float_as_uint(__half2float(__ushort_as_half(lo.y)));
+      const uint32_t f2 = __float_as_uint(__half2float(__ushort_as_half(hi.x)));
+      const uint32_t f3 = __float_as_uint(__half2float(__ushort_as_half(hi.y)));
+      return make_uint2(__byte_perm(f0, f1, 0x7632), __byte_perm(f2, f3, 0x7632));
+    }
+  }
+}
 
 // Element offset of 16-byte piece c (of D / 8) of row r in a [D / 64][ROWS][64]
 // tile whose 128-byte rows are 128B-swizzled: piece c % 8 of a row moves to
@@ -183,7 +272,9 @@ __device__ __forceinline__ float carry(float m, float mn) {
 // ws_o[(((z * X + x) * segs + s) * M + mr) * D] and (m, l) at
 // ws_ml[(...) * 2].
 struct Args {
-  CUtensorMap tm_k, tm_v;   // the pools [pages, page, nkv, D]: boxes of BOX tokens x 64 dims
+  CUtensorMap tm_k, tm_v;   // the pools [pages, page, nkv, D] (paged_tile.cuh: encode_pools)
+  const float* k_scale;     // [pages, nkv] (quantized pools; else null)
+  const float* v_scale;
   const void* q;            // [rows, 1, n, D]
   void* out;                // [rows, 1, n, D]
   const int* tables;        // [T, W]
@@ -373,30 +464,43 @@ constexpr int RING_ITEMS = 8;   // items a block's loads may run ahead by
 // keeps STAGES stages in flight across items, so an item's first loads
 // overlap the one before.  For tile t of an item (rows r .. r + t.nrows -
 // 1), kv head h and the heads hp0 .. hp0 + gp - 1 of its group: all its
-// segments (seg < 0), or segment `seg` (workspace slot `slot`).
-template <typename T, int D>
+// segments (seg < 0), or segment `seg` (workspace slot `slot`).  S: the
+// pools' storage type (T: a plain pool; int8_t or __nv_fp8_e4m3: quantized,
+// scaled by a.k_scale / a.v_scale).
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(THREADS, 2)
 tile_kernel(const __grid_constant__ Args a) {
+  constexpr bool QUANT = !std::is_same<S, T>::value;
+  constexpr int SB = QUANT ? 1 : 2;   // bytes a pool value
+  using L = Smem<D, SB>;
   constexpr int PPR = D / 8;   // 16-byte pieces a row of D
   constexpr int H = D / 64;    // 64-dim sub-tiles a row of D
   constexpr int GROUPS = SPAN / BOX;
+  // a box: BOX tokens x BOXW values (16-bit pools: 64-dim sub-tiles; one
+  // byte a value: a whole row), NBH boxes a row
+  constexpr int BOXW = QUANT ? D : 64, NBH = D / BOXW;
+  constexpr uint32_t BOX_TX = BOX * BOXW * SB;   // bytes a box
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ float s_m[WARPS][M], s_l[WARPS][M], s_f[M][WARPS + 2], tot_m[M], tot_l[M];
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ Item ring[RING_ITEMS];
   __shared__ int s_fetched, s_flag;
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
-  T* const sk = reinterpret_cast<T*>(smem);
-  T* const sv = sk + Smem<D>::RING;
-  T* const sq = sv + Smem<D>::RING;
+  unsigned char* const rk = smem;                      // the K ring, L::RING values
+  unsigned char* const rv = smem + L::RING * SB;       // the V ring
+  T* const sk = reinterpret_cast<T*>(rk);
+  T* const sv = reinterpret_cast<T*>(rv);
+  T* const sq = reinterpret_cast<T*>(smem + 2 * L::RING * SB);
   float* const tot_o = reinterpret_cast<float*>(sq + M * D);   // [M][D]
+  float* const merge = tot_o + M * D;                   // quantized: [WARPS][M][D]
+  float* const s_sc = merge + WARPS * M * D;            // quantized: [STAGES][2][GROUPS]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = a.n / a.nkv;
   const int passes = head_passes(g), X = a.nkv * passes;
   const int seg_tok = a.seg_stages * SPAN;
   if (tid == 0) {
 #pragma unroll
-    for (int b = 0; b < STAGES; ++b) hopper::mbar_init(&full[b], 1);
+    for (int b = 0; b < STAGES; ++b) hopper::mbar_init(&full[b], QUANT ? 1 + GROUPS : 1);
     hopper::mbar_init_fence();
     s_fetched = 0;
   }
@@ -441,8 +545,8 @@ tile_kernel(const __grid_constant__ Args a) {
   // warp 0, the loads: lane `lane` loads box (tensor, sub-tile, token
   // group) of a stage; a box wholly outside its item's walk reads page
   // `pages`, past the map's end, which reads as zeros
-  const int bx_v = lane / (H * GROUPS), bx_h = (lane / GROUPS) % H, bx_g = lane % GROUPS;
-  const bool boxer = lane < 2 * H * GROUPS;
+  const int bx_v = lane / (NBH * GROUPS), bx_h = (lane / GROUPS) % NBH, bx_g = lane % GROUPS;
+  const bool boxer = lane < 2 * NBH * GROUPS;
   // the page id of this lane's box of stage s of an item (`pages` outside
   // its walk)
   auto box_page = [&](const Item& it, int s) {
@@ -468,12 +572,23 @@ tile_kernel(const __grid_constant__ Args a) {
         const int b = gl % STAGES;
         const int tok = (it.k0 + ls) * SPAN + bx_g * BOX;
         const int pid = ahead >= 0 ? ahead : box_page(it, ls);
-        if (lane == 0) hopper::mbar_arrive_expect_tx(&full[b], 2 * H * GROUPS * BOX_BYTES);
+        if (lane == 0) hopper::mbar_arrive_expect_tx(&full[b], 2 * NBH * GROUPS * BOX_TX);
         __syncwarp();
         if (boxer)
-          hopper::tma_load_4d((bx_v ? sv : sk) + b * SPAN * D + (bx_h * SPAN + bx_g * BOX) * 64,
-                              bx_v ? &a.tm_v : &a.tm_k, &full[b], bx_h * 64, it.h, tok % a.page,
-                              pid);
+          hopper::tma_load_4d(
+              (bx_v ? rv : rk) + (b * SPAN * D + (bx_h * SPAN + bx_g * BOX) * BOXW) * SB,
+              bx_v ? &a.tm_v : &a.tm_k, &full[b], bx_h * BOXW, it.h, tok % a.page, pid);
+        if constexpr (QUANT) {
+          // lane j < GROUPS (K's box of group j): the group's page scales,
+          // 0 for the page past the map's end (never read)
+          if (lane < GROUPS) {
+            const bool real = pid < a.pages;
+            const long long at = real ? (long long)pid * a.nkv + it.h : 0;
+            hopper::cp_async_4(s_sc + (b * 2) * GROUPS + lane, a.k_scale + at, real ? 4 : 0);
+            hopper::cp_async_4(s_sc + (b * 2 + 1) * GROUPS + lane, a.v_scale + at, real ? 4 : 0);
+            hopper::cp_async_mbar_arrive(&full[b]);
+          }
+        }
         ++ls;
         ++gl;
         // the next stage's page id, read while this one loads
@@ -508,7 +623,8 @@ tile_kernel(const __grid_constant__ Args a) {
     }
   };
   auto scratch = [&](int w, int b) {   // warp w's state, in the free buffer b
-    return reinterpret_cast<float*>((w < 2 ? sk : sv) + b * SPAN * D) + (w & 1) * M * D;
+    if constexpr (QUANT) return merge + w * M * D;
+    else return reinterpret_cast<float*>((w < 2 ? sk : sv) + b * SPAN * D) + (w & 1) * M * D;
   };
   // a segment ends: merge the warps' states in warp order through the free
   // buffer b, fold the result into the running output, start afresh
@@ -541,9 +657,12 @@ tile_kernel(const __grid_constant__ Args a) {
     }
     __syncthreads();
     fold_o([&](int mr, int c) {
+      // the states hold the products' columns; a quantized pool's dim c is
+      // column c / (D / 8) of block c % (D / 8)
+      const int at = QUANT ? 8 * (c % (D / 8)) + c / (D / 8) : c;
       float os = 0.f;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) os += s_f[mr][w] * scratch(w, b)[mr * D + c];
+      for (int w = 0; w < WARPS; ++w) os += s_f[mr][w] * scratch(w, b)[mr * D + at];
       return os;
     });
     __syncthreads();
@@ -595,8 +714,18 @@ tile_kernel(const __grid_constant__ Args a) {
     __syncthreads();
     uint32_t qa[D / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      flash::ldmatrix_x4(qa[kk], sq + swz<M>((lane & 7) + 8 * ((lane >> 3) & 1), 2 * kk + (lane >> 4)));
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (QUANT) {   // k16 index k of step kk reads dim 16 kk + 4 (k % 8 / 2) + 2 (k / 8) + k % 2
+        const int t = lane & 3;
+        const uint2 r0 = *reinterpret_cast<const uint2*>(
+            sq + swz<M>(lane >> 2, 2 * kk + (t >> 1)) + 4 * (t & 1));
+        const uint2 r1 = *reinterpret_cast<const uint2*>(
+            sq + swz<M>((lane >> 2) + 8, 2 * kk + (t >> 1)) + 4 * (t & 1));
+        qa[kk][0] = r0.x, qa[kk][1] = r1.x, qa[kk][2] = r0.y, qa[kk][3] = r1.y;
+      } else {
+        flash::ldmatrix_x4(qa[kk], sq + swz<M>((lane & 7) + 8 * ((lane >> 3) & 1), 2 * kk + (lane >> 4)));
+      }
+    }
     const float sl2 = a.scale * flash::LOG2E;
     reset();
 
@@ -606,16 +735,35 @@ tile_kernel(const __grid_constant__ Args a) {
       hopper::mbar_wait(&full[buf], ((base + s) / STAGES) & 1);
       const int c0 = (k0 + s) * SPAN + warp * CH;
       if (c0 + CH > wlo && c0 < whi) {   // some row of the tile has a token here
-        const T* kb = sk + buf * SPAN * D;
-        const T* vb = sv + buf * SPAN * D;
         float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        // a quantized pool: this lane's tokens 4 t .. 4 t + 3 of the warp's
+        // 16 lie in one 8-token group; its K scale joins the softmax scale
+        float ksl = sl2, vs = 1.f;
+        if constexpr (QUANT) {
+          const unsigned char* kb8 = rk + buf * SPAN * D;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t b[4];
-          flash::ldmatrix_x4(b, kb + swz<SPAN>(warp * CH + (lane & 7) + 8 * (lane >> 4),
-                                               2 * kk + ((lane >> 3) & 1)));
-          mma<T>(sc[0], qa[kk], b[0], b[1]);
-          mma<T>(sc[1], qa[kk], b[2], b[3]);
+          for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {   // column n = lane / 4 of block j: token 4 (n / 2) + 2 j + n % 2
+              const int n = lane >> 2;
+              const uint2 b = widen4<T, S>(*reinterpret_cast<const uint32_t*>(
+                  kb8 + swzq<D>(warp * CH + 4 * (n >> 1) + 2 * j + (n & 1), 16 * kk + 4 * (lane & 3))));
+              mma<T>(sc[j], qa[kk], b.x, b.y);
+            }
+          }
+          const int grp = 2 * warp + ((lane & 3) >> 1);
+          ksl = s_sc[(buf * 2) * GROUPS + grp] * sl2;
+          vs = s_sc[(buf * 2 + 1) * GROUPS + grp];
+        } else {
+          const T* kb = sk + buf * SPAN * D;
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t b[4];
+            flash::ldmatrix_x4(b, kb + swz<SPAN>(warp * CH + (lane & 7) + 8 * (lane >> 4),
+                                                 2 * kk + ((lane >> 3) & 1)));
+            mma<T>(sc[0], qa[kk], b[0], b[1]);
+            mma<T>(sc[1], qa[kk], b[2], b[3]);
+          }
         }
         uint32_t pa[4], pl[4];
 #pragma unroll
@@ -625,9 +773,9 @@ tile_kernel(const __grid_constant__ Args a) {
           for (int j = 0; j < 2; ++j) {
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
-              const int tok = c0 + 8 * j + 2 * (lane & 3) + u;
+              const int tok = c0 + (QUANT ? 4 * (lane & 3) + 2 * j : 8 * j + 2 * (lane & 3)) + u;
               const bool ok = tok < hi_r[e] && (a.window <= 0 || pos_r[e] - tok < a.window);
-              v[2 * j + u] = ok ? sc[j][2 * e + u] * sl2 : NEG_INF;
+              v[2 * j + u] = ok ? sc[j][2 * e + u] * ksl : NEG_INF;
             }
           }
           const float mx = flash::quad_max(fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])));
@@ -646,6 +794,12 @@ tile_kernel(const __grid_constant__ Args a) {
             o[j][2 * e] *= alpha;
             o[j][2 * e + 1] *= alpha;
           }
+          // a quantized pool: P's columns times their V scale (l keeps the
+          // unscaled sum)
+          if constexpr (QUANT) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) p[x] *= vs;
+          }
           // P as hi + lo in T (about 16 bits of it, not T's 8 or 11), so the
           // only rounding P V adds to the fp32 path's is summation order
           float hi[4];
@@ -656,15 +810,53 @@ tile_kernel(const __grid_constant__ Args a) {
           pl[e] = pack2<T>(p[0] - hi[0], p[1] - hi[1]);
           pl[2 + e] = pack2<T>(p[2] - hi[2], p[3] - hi[3]);
         }
+        if constexpr (QUANT) {
+          // this lane's V bytes: dims n (D / 8) .. + D / 8 - 1 (n = lane / 4)
+          // of its tokens 4 t .. 4 t + 3, which are P's k16 indices 2t, 2t +
+          // 1, 2t + 8, 2t + 9; bytes of two tokens interleaved make a B
+          // fragment's pairs
+          constexpr int VW = D / 32;   // 32-bit words a token gives the lane
+          const unsigned char* vb8 = rv + buf * SPAN * D;
+          uint32_t vw[4][VW];
 #pragma unroll
-        for (int jj = 0; jj < D / 16; ++jj) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vb + swz<SPAN>(warp * CH + (lane & 7) + 8 * ((lane >> 3) & 1),
+          for (int i = 0; i < 4; ++i) {
+            const unsigned char* src =
+                vb8 + swzq<D>(warp * CH + 4 * (lane & 3) + i, (lane >> 2) * (D / 8));
+            if constexpr (VW == 4) {
+              const uint4 x = *reinterpret_cast<const uint4*>(src);
+              vw[i][0] = x.x, vw[i][1] = x.y, vw[i][2] = x.z, vw[i][3] = x.w;
+            } else {
+              const uint2 x = *reinterpret_cast<const uint2*>(src);
+              vw[i][0] = x.x, vw[i][1] = x.y;
+            }
+          }
+#pragma unroll
+          for (int w = 0; w < VW; ++w) {
+            // dims 4 w .. 4 w + 3 of the lane's: blocks jj = 4 w + c
+            const uint2 a01 = widen4<T, S>(__byte_perm(vw[0][w], vw[1][w], 0x5140));
+            const uint2 b01 = widen4<T, S>(__byte_perm(vw[0][w], vw[1][w], 0x7362));
+            const uint2 a23 = widen4<T, S>(__byte_perm(vw[2][w], vw[3][w], 0x5140));
+            const uint2 b23 = widen4<T, S>(__byte_perm(vw[2][w], vw[3][w], 0x7362));
+            const uint32_t f0[4] = {a01.x, a01.y, b01.x, b01.y};
+            const uint32_t f1[4] = {a23.x, a23.y, b23.x, b23.y};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              mma<T>(o[4 * w + c], pa, f0[c], f1[c]);
+              mma<T>(o[4 * w + c], pl, f0[c], f1[c]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < D / 16; ++jj) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, sv + buf * SPAN * D +
+                                     swz<SPAN>(warp * CH + (lane & 7) + 8 * ((lane >> 3) & 1),
                                                2 * jj + (lane >> 4)));
-          mma<T>(o[2 * jj], pa, b[0], b[1]);
-          mma<T>(o[2 * jj + 1], pa, b[2], b[3]);
-          mma<T>(o[2 * jj], pl, b[0], b[1]);
-          mma<T>(o[2 * jj + 1], pl, b[2], b[3]);
+            mma<T>(o[2 * jj], pa, b[0], b[1]);
+            mma<T>(o[2 * jj + 1], pa, b[2], b[3]);
+            mma<T>(o[2 * jj], pl, b[0], b[1]);
+            mma<T>(o[2 * jj + 1], pl, b[2], b[3]);
+          }
         }
       }
       __syncthreads();   // every warp is done with this stage's buffer
@@ -725,27 +917,34 @@ tile_kernel(const __grid_constant__ Args a) {
   }
 }
 
-// The pools' TMA maps (pools [pages, page, nkv, d], contiguous, 16-bit):
-// global dims innermost first (d, nkv, page, pages) and the byte strides of
-// nkv, page and pages; boxes of BOX tokens x 64 dims.  dtype 1 = bf16,
-// 2 = fp16.  K6's tile routine (paged_prefill_tile.cuh) reads the same maps.
+// The pools' TMA maps (pools [pages, page, nkv, d], contiguous): global
+// dims innermost first (d, nkv, page, pages) and the byte strides of nkv,
+// page and pages.  dtype 1 = bf16, 2 = fp16: boxes of BOX tokens x 64
+// dims, 128B-swizzled; 3 = one byte a value (int8, or fp8 e4m3 moved as
+// bytes): boxes of BOX tokens x d bytes (a row, whose stride is a multiple
+// of 16 as TMA needs), swizzled as swzq reads them.  K6's tile routine
+// (paged_prefill_tile.cuh) reads the same maps.
 inline cudaError_t encode_pools(CUtensorMap* tm_k, CUtensorMap* tm_v, const void* k_pool,
                                 const void* v_pool, int nkv, int page, int pages, int d,
                                 int dtype) {
-  const long long row = 2ll * d;
+  const long long row = (dtype == 3 ? 1ll : 2ll) * d;
   const long long geo[7] = {d, nkv, page, pages, row, nkv * row, (long long)page * nkv * row};
-  const CUtensorMapDataType type =
-      dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  cudaError_t e = hopper::encode_rows_bf16(tm_k, k_pool, geo, BOX, type);
-  if (e == cudaSuccess) e = hopper::encode_rows_bf16(tm_v, v_pool, geo, BOX, type);
+  const CUtensorMapDataType type = dtype == 3   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle swz =
+      dtype == 3 && d == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint32_t cols = dtype == 3 ? d : 64;
+  cudaError_t e = hopper::encode_rows_bf16(tm_k, k_pool, geo, BOX, type, swz, cols);
+  if (e == cudaSuccess) e = hopper::encode_rows_bf16(tm_v, v_pool, geo, BOX, type, swz, cols);
   return e;
 }
 
-template <typename T, int D>
+template <typename T, typename S, int D>
 cudaError_t launch_typed(Args& a, cudaStream_t st) {
-  constexpr int smem = Smem<D>::BYTES;
-  cudaError_t e =
-      cudaFuncSetAttribute(tile_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = Smem<D, std::is_same<S, T>::value ? 2 : 1>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(tile_kernel<T, S, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
@@ -770,24 +969,50 @@ cudaError_t launch_typed(Args& a, cudaStream_t st) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, tile_kernel<T, D>, a);
+  e = cudaLaunchKernelEx(&cfg, tile_kernel<T, S, D>, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // One K4 / K5 launch on the tile path: the planner, then the persistent
-// blocks.  dtype 1 = bf16, 2 = fp16; d 64 or 128.
+// blocks.  dtype 1 = bf16, 2 = fp16 (q's type); KV the pools' storage code
+// (paged_common.cuh: Storage; 1 and 2 need a.k_scale / a.v_scale); d 64 or
+// 128.
+template <int KV>
 inline cudaError_t launch(Args& a, const void* k_pool, const void* v_pool, int d, int dtype,
                           cudaStream_t st) {
-  cudaError_t e =
-      encode_pools(&a.tm_k, &a.tm_v, k_pool, v_pool, a.nkv, a.page, a.pages, d, dtype);
+  if (KV != 0 && (a.k_scale == nullptr || a.v_scale == nullptr)) return cudaErrorInvalidValue;
+  cudaError_t e = encode_pools(&a.tm_k, &a.tm_v, k_pool, v_pool, a.nkv, a.page, a.pages, d,
+                               KV == 0 ? dtype : 3);
   if (e != cudaSuccess) return e;
-  if (dtype == 1 && d == 64) return launch_typed<__nv_bfloat16, 64>(a, st);
-  if (dtype == 1 && d == 128) return launch_typed<__nv_bfloat16, 128>(a, st);
-  if (dtype == 2 && d == 64) return launch_typed<__half, 64>(a, st);
-  if (dtype == 2 && d == 128) return launch_typed<__half, 128>(a, st);
+  using B = __nv_bfloat16;
+  using F = __half;
+  if (dtype == 1 && d == 64) return launch_typed<B, typename Storage<B, KV>::type, 64>(a, st);
+  if (dtype == 1 && d == 128) return launch_typed<B, typename Storage<B, KV>::type, 128>(a, st);
+  if (dtype == 2 && d == 64) return launch_typed<F, typename Storage<F, KV>::type, 64>(a, st);
+  if (dtype == 2 && d == 128) return launch_typed<F, typename Storage<F, KV>::type, 128>(a, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace tile
+
+// K4's tile routine (K5's too) over pools of storage code 0, 1 or 2: each
+// defined in the paged_ragged.cu object of that code.
+cudaError_t tile_launch_0(tile::Args&, const void*, const void*, int d, int dtype,
+                          cudaStream_t);
+cudaError_t tile_launch_1(tile::Args&, const void*, const void*, int d, int dtype,
+                          cudaStream_t);
+cudaError_t tile_launch_2(tile::Args&, const void*, const void*, int d, int dtype,
+                          cudaStream_t);
+
+// One tile-path launch over pools of storage code kv.
+inline cudaError_t tile_launch(tile::Args& a, const void* k_pool, const void* v_pool, int d,
+                               int dtype, int kv, cudaStream_t st) {
+  switch (kv) {
+    case 0: return tile_launch_0(a, k_pool, v_pool, d, dtype, st);
+    case 1: return tile_launch_1(a, k_pool, v_pool, d, dtype, st);
+    case 2: return tile_launch_2(a, k_pool, v_pool, d, dtype, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 }  // namespace paged

@@ -14,9 +14,10 @@ Each function has two implementations with the same contract:
   tick, the speculative draft's decode step and the prefill chunk; they
   walk the rows' pages straight out of the pool, so no ``[rows, context]``
   gather ever materializes.  In bf16 / fp16 at head_dim 64 and 128 the
-  ragged and decode kernels run ``csrc/paged_tile.cuh``: adjacent rows on
-  one table share their page loads and the products run on the tensor
-  cores, and a row's output does not depend on the rows beside it
+  ragged and decode kernels run ``csrc/paged_tile.cuh`` (the prefill kernel
+  ``csrc/paged_prefill_tile.cuh``): adjacent rows on one table share their
+  page loads and the products run on the tensor cores, and a row's output
+  does not depend on the rows beside it
   (``ops/kernels/__init__.py:paged_path``);
 * the plain PyTorch versions below: gather the block-tabled pages into a
   dense view and run :func:`ops.attention.xla_attention` in fp32 — the
@@ -27,9 +28,11 @@ Each function has two implementations with the same contract:
 The pools are plain tensors in q's dtype, or quantized pools
 (``ops/kv_quant.QuantPagedKV``: int8 / fp8 e4m3 pages with one fp32
 scale per (page, kv head), ``--kv_dtype int8|fp8``).  The kernels read
-the one-byte pages and their scales themselves, on ``attend_row``; the
-plain versions dequantize the gathered pages in fp32 (``k.float() *
-scale``, the kernels' arithmetic, not rounded to q's dtype).
+the one-byte pages and their scales themselves (the tile routines convert
+the bytes exactly to q's type and scale each score and probability column
+in fp32; ``attend_row`` dequantizes in fp32); the plain versions
+dequantize the gathered pages in fp32 (``k.float() * scale``, not rounded
+to q's dtype).
 
 Dispatch is keyed on the tensor's device: CPU tensors take the plain
 version; CUDA tensors launch the kernel, which raises on a shape or type

@@ -924,7 +924,9 @@ def test_rmsnorm_wrappers_raise_on_what_the_kernels_do_not_take():
 
 # ---------------------------------------------------------------------------
 # quantized pools: int8 / fp8 e4m3 pages with per-(page, kv head) scales,
-# read by attend_row (csrc/paged_common.cuh) in all three kernels
+# read by the tile routines (csrc/paged_tile.cuh, paged_prefill_tile.cuh)
+# for bf16 / fp16 q at head_dim 64 / 128, by attend_row
+# (csrc/paged_common.cuh) for fp32 q and head_dim 256
 # ---------------------------------------------------------------------------
 
 from megatron_llm_tpu_torch.ops import kv_quant  # noqa: E402
@@ -956,15 +958,17 @@ def _agree(ker, ref, dtype):
 def test_quantized_ragged_matches_plain(layout, kv_dtype, dtype, d, g,
                                         window):
     """K4 over a quantized pool against its plain version (which
-    dequantizes the gathered pages in fp32), on ``attend_row``; dead rows
-    exact zeros; two launches give the same bits."""
+    dequantizes the gathered pages in fp32), on the routine the path rule
+    names (the tile routine for bf16 / fp16 at d 64 / 128); dead rows exact
+    zeros; two launches give the same bits."""
     (q, k, v, *ints), live = _on_card(ragged_layout(layout, g, d, PAGE),
                                       dtype)
     kq, vq = _quantize(k, v, kv_dtype)
     pt_kernels.reset_launch_counts()
     ker = pt_paged.paged_attention_ragged(q, kq, vq, *ints,
                                           sliding_window=window)
-    assert pt_kernels.paged_ragged_kernel.last_path == "rows"
+    assert pt_kernels.paged_ragged_kernel.last_path == pt_kernels.paged_path(
+        dtype, d, kq.q.dtype)
     again = pt_paged.paged_attention_ragged(q, kq, vq, *ints,
                                             sliding_window=window)
     ref = pt_paged.paged_attention_ragged(q, kq, vq, *ints,
@@ -990,7 +994,8 @@ def test_quantized_decode_matches_plain_and_ragged_bitwise(kv_dtype, dtype,
     kq, vq = _quantize(k, v, kv_dtype)
     ker = pt_paged.paged_attention_decode(q, kq, vq, tables, pos,
                                           sliding_window=window)
-    assert pt_kernels.paged_decode_kernel.last_path == "rows"
+    assert pt_kernels.paged_decode_kernel.last_path == pt_kernels.paged_path(
+        dtype, d, kq.q.dtype)
     ref = pt_paged.paged_attention_decode(q, kq, vq, tables, pos,
                                           sliding_window=window,
                                           use_kernel=False)
@@ -1012,13 +1017,14 @@ def test_quantized_decode_matches_plain_and_ragged_bitwise(kv_dtype, dtype,
 @pytest.mark.parametrize("layout", list(PREFILL_LAYOUTS))
 def test_quantized_prefill_matches_plain(layout, kv_dtype, dtype, g, d,
                                          window):
-    """K6 over a quantized pool against its plain version, on
-    ``attend_row``; two launches give the same bits."""
+    """K6 over a quantized pool against its plain version, on the routine
+    the path rule names; two launches give the same bits."""
     q, k, v, bt, start = _prefill(layout, g, d, dtype)
     kq, vq = _quantize(k, v, kv_dtype)
     ker = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
                                            sliding_window=window)
-    assert pt_kernels.paged_prefill_kernel.last_path == "rows"
+    assert pt_kernels.paged_prefill_kernel.last_path == pt_kernels.paged_path(
+        dtype, d, kq.q.dtype)
     again = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
                                              sliding_window=window)
     ref = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
@@ -1037,6 +1043,7 @@ def test_quantized_planted_scales_fail_the_check(kv_dtype):
     kq, vq = _quantize(k, v, kv_dtype)
     off = [kv_quant.QuantPagedKV(p.q, p.scale * PLANTED) for p in (kq, vq)]
     ker = pt_paged.paged_attention_ragged(q, *off, tables, idx, pos, hor)
+    assert pt_kernels.paged_ragged_kernel.last_path == "tile"
     ref = pt_paged.paged_attention_ragged(q, kq, vq, tables, idx, pos, hor,
                                           use_kernel=False)
     assert norm_rel(ker, ref) > NORM_BAR
@@ -1071,3 +1078,157 @@ def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take():
             q, kv_quant.QuantPagedKV(kq.q.to(torch.int16), kq.scale),
             kv_quant.QuantPagedKV(vq.q.to(torch.int16), vq.scale), tables,
             idx, pos, hor, scale=0.1)
+
+
+# the tile routines' quantized stage: bf16 / fp16 q over int8 / fp8 pools
+QUANT_TILE_DTYPES = (torch.bfloat16, torch.float16)
+
+
+@pytest.mark.parametrize("g", [1, 4, 32])
+@pytest.mark.parametrize("dtype", QUANT_TILE_DTYPES)
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+@pytest.mark.parametrize("layout", RAGGED_LAYOUTS)
+def test_quantized_ragged_rows_do_not_depend_on_their_tile(layout, kv_dtype,
+                                                           dtype, g):
+    """Over a quantized pool each row's K4 output is bitwise the same in
+    the full tick, alone, and in a permuted tick (other tiles)."""
+    (q, k, v, tables, idx, pos, hor), _ = _on_card(
+        ragged_layout(layout, g, 128, PAGE), dtype)
+    kq, vq = _quantize(k, v, kv_dtype)
+
+    def k4(rows):
+        return pt_paged.paged_attention_ragged(
+            q[rows].contiguous(), kq, vq, tables, idx[rows].contiguous(),
+            pos[rows].contiguous(), hor[rows].contiguous(), sliding_window=9)
+
+    R = q.shape[0]
+    full = k4(torch.arange(R, device=q.device))
+    assert pt_kernels.paged_ragged_kernel.last_path == "tile"
+    perm = torch.randperm(R, generator=torch.Generator().manual_seed(g))
+    perm = perm.to(q.device)
+    assert torch.equal(k4(perm)[torch.argsort(perm)], full)
+    for r in range(R):
+        assert torch.equal(k4(torch.tensor([r], device=q.device))[0],
+                           full[r]), r
+
+
+@pytest.mark.parametrize("g", [1, 4, 32])
+@pytest.mark.parametrize("dtype", QUANT_TILE_DTYPES)
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+def test_quantized_segments_fold_the_same_in_a_block_or_across_blocks(
+        kv_dtype, dtype, g, monkeypatch):
+    """Over a quantized pool a long tile's segments give the same bits
+    spread over blocks through the workspace or walked in one block, for
+    K4 and for K5 on the same rows."""
+    (q, k, v, tables, idx, pos, hor), _ = _on_card(
+        ragged_layout("long", g, 128, PAGE), dtype)
+    kq, vq = _quantize(k, v, kv_dtype)
+    args = (q, kq, vq, tables, idx, pos, hor)
+    spread = pt_kernels.paged_ragged_kernel(*args, scale=0.1)
+    dec_spread = pt_kernels.paged_decode_kernel(q[:1], kq, vq, tables[1:2],
+                                                pos[:1], scale=0.1)
+    monkeypatch.setattr(pt_kernels, "PAGED_WS_CAP", 0)
+    one_block = pt_kernels.paged_ragged_kernel(*args, scale=0.1)
+    dec_one = pt_kernels.paged_decode_kernel(q[:1], kq, vq, tables[1:2],
+                                             pos[:1], scale=0.1)
+    assert pt_kernels.paged_decode_kernel.last_path == "tile"
+    assert torch.equal(spread, one_block)
+    assert torch.equal(dec_spread, dec_one)
+    assert torch.equal(dec_one[0], one_block[0])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dtype", QUANT_TILE_DTYPES)
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+@pytest.mark.parametrize("layout", ["base", "long"])
+def test_quantized_prefill_tile_is_bitwise_stable(layout, kv_dtype, dtype, g,
+                                                  d):
+    """K6 over a quantized pool: two launches ``torch.equal``, and each
+    sequence ``torch.equal`` alone and beside another at the same table
+    width."""
+    q, k, v, bt, start = _prefill(layout, g, d, dtype)
+    kq, vq = _quantize(k, v, kv_dtype)
+    first = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
+                                             sliding_window=100)
+    again = pt_paged.paged_attention_prefill(q, kq, vq, bt, start,
+                                             sliding_window=100)
+    assert pt_kernels.paged_prefill_kernel.last_path == "tile"
+    assert torch.equal(first, again)
+    for i in range(q.shape[0]):
+        alone = pt_paged.paged_attention_prefill(
+            q[i:i + 1].contiguous(), kq, vq, bt[i:i + 1].contiguous(),
+            start[i:i + 1].contiguous(), sliding_window=100)
+        assert torch.equal(alone[0], first[i]), i
+
+
+def _nan_past_the_end(pool):
+    """The pool with its scales in a buffer one page longer whose extra
+    row is NaN: a kernel that read the scale of the page past the pool's
+    end (the tile routines' sentinel) would turn its output to NaN."""
+    P, nkv = pool.scale.shape
+    buf = torch.full((P + 1, nkv), float("nan"), device=pool.scale.device)
+    buf[:P] = pool.scale
+    return kv_quant.QuantPagedKV(pool.q, buf[:P])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", QUANT_TILE_DTYPES)
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+def test_quantized_tile_never_reads_the_sentinel_scale(kv_dtype, dtype, d):
+    """Walks that reach the page past the pool's end (contexts off the
+    64-token grid, a window's start, dead rows) read no scale there: with
+    NaN just past the scales every output is finite and equals the run
+    on the plain scales, for K4, K5 and K6."""
+    (q, k, v, tables, idx, pos, hor), live = _on_card(
+        ragged_layout("verify", 4, d, PAGE), dtype)
+    kq, vq = _quantize(k, v, kv_dtype)
+    kn, vn = _nan_past_the_end(kq), _nan_past_the_end(vq)
+    for fn, args in (
+            (pt_paged.paged_attention_ragged, (q, tables, idx, pos, hor)),
+            (pt_paged.paged_attention_decode,
+             (q[:5], tables[idx[:5].long()], pos[:5]))):
+        qq, *ints = args
+        ker = fn(qq, kn, vn, *ints, sliding_window=9)
+        assert bool(torch.isfinite(ker.float()).all())
+        assert torch.equal(ker, fn(qq, kq, vq, *ints, sliding_window=9))
+    assert (pt_kernels.paged_ragged_kernel.last_path,
+            pt_kernels.paged_decode_kernel.last_path) == ("tile", "tile")
+    qp, kp, vp, bt, start = _prefill("two-tiles", 4, d, dtype)
+    kq, vq = _quantize(kp, vp, kv_dtype)
+    ker = pt_paged.paged_attention_prefill(qp, _nan_past_the_end(kq),
+                                           _nan_past_the_end(vq), bt, start,
+                                           sliding_window=100)
+    assert pt_kernels.paged_prefill_kernel.last_path == "tile"
+    assert bool(torch.isfinite(ker.float()).all())
+    assert torch.equal(ker, pt_paged.paged_attention_prefill(
+        qp, kq, vq, bt, start, sliding_window=100))
+
+
+@pytest.mark.parametrize("kv_dtype", QUANT_KV)
+def test_quantized_tile_planted_scales_fail_the_check_in_fp16(kv_dtype):
+    """K4, K5 and K6 on the tile routine with fp16 q, given the pages'
+    scales 10% off, must fail the bar that holds them to their plain
+    versions on the right scales."""
+    (q, k, v, tables, idx, pos, hor), _ = _on_card(
+        ragged_layout("verify", 4, 64, PAGE), torch.float16)
+    kq, vq = _quantize(k, v, kv_dtype)
+    off = [kv_quant.QuantPagedKV(p.q, p.scale * PLANTED) for p in (kq, vq)]
+    ker = pt_paged.paged_attention_ragged(q, *off, tables, idx, pos, hor)
+    ref = pt_paged.paged_attention_ragged(q, kq, vq, tables, idx, pos, hor,
+                                          use_kernel=False)
+    assert norm_rel(ker, ref) > NORM_BAR
+    ker = pt_paged.paged_attention_decode(q[:5], *off, tables[idx[:5].long()],
+                                          pos[:5])
+    ref = pt_paged.paged_attention_decode(q[:5], kq, vq,
+                                          tables[idx[:5].long()], pos[:5],
+                                          use_kernel=False)
+    assert norm_rel(ker, ref) > NORM_BAR
+    qp, kp, vp, bt, start = _prefill("two-tiles", 4, 64, torch.float16)
+    kq, vq = _quantize(kp, vp, kv_dtype)
+    off = [kv_quant.QuantPagedKV(p.q, p.scale * PLANTED) for p in (kq, vq)]
+    ker = pt_paged.paged_attention_prefill(qp, *off, bt, start)
+    assert pt_kernels.paged_prefill_kernel.last_path == "tile"
+    ref = pt_paged.paged_attention_prefill(qp, kq, vq, bt, start,
+                                           use_kernel=False)
+    assert norm_rel(ker, ref) > NORM_BAR

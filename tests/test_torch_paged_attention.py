@@ -401,9 +401,13 @@ def test_quantized_prefill_plain_matches_jax(kv_dtype, g, window):
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 def test_quantized_pools_take_attend_row(kv_dtype):
-    """Quantized pools run ``attend_row`` whatever q's type: the tile
-    routines take 2-byte pages only."""
+    """Quantized pools run ``attend_row`` where plain pools do (fp32 q,
+    head_dim 256) and the tile routines everywhere else (bf16 / fp16 q at
+    head_dim 64 / 128, which read one-byte pages on the tensor cores)."""
     pt_dtype = torch.int8 if kv_dtype == "int8" else torch.float8_e4m3fn
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in (64, 128, 256):
-            assert pt_kernels.paged_path(dtype, d, pt_dtype) == "rows"
+            assert (pt_kernels.paged_path(dtype, d, pt_dtype)
+                    == pt_kernels.paged_path(dtype, d))
+            assert (pt_kernels.paged_path(dtype, d, pt_dtype) == "rows") == (
+                dtype == torch.float32 or d == 256)
